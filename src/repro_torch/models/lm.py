@@ -1,0 +1,127 @@
+"""Decoder-only language model of Aaren blocks — port of ``repro.models.lm``.
+
+Parameters are a plain tree: ``{"embed", "final_norm", "unembed"?,
+"layers": [block params, ...]}``.  ``layers`` is flat and in the JAX
+package's order: period ``i``, pattern position ``pos`` is layer
+``i·len(pattern) + pos``, then the remainder ("rest") layers; the JAX
+package's stacked ``lax.scan`` over periods becomes a Python loop.  Decode
+states are a list with one ScanState per layer, batch on axis 0 of every
+leaf.
+
+Entry points, as in the JAX package:
+
+* :func:`lm_apply`         — tokens -> logits (+ per-layer final carries);
+* :func:`lm_decode_step`   — one token through every layer's carry;
+* :func:`lm_prefill_chunk` — advance every carry by one fixed-shape chunk
+  (the serving hot path);
+* :func:`lm_state_init` / :func:`lm_state_select` — the empty state, and a
+  per-slot masked select used to reset or keep slots.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.scan_attention import ScanState
+from repro_torch.device import resolve_device
+from repro_torch.models import blocks
+from repro_torch.models.layers import (
+    apply_embed,
+    apply_norm,
+    apply_unembed,
+    embed_specs,
+    norm_specs,
+    unembed_specs,
+)
+
+
+def layer_sigs(cfg: ArchConfig) -> list[tuple[str, str]]:
+    """(mixer, mlp) signature of every layer, in layer order."""
+    sigs = list(zip(cfg.effective_pattern(), cfg.mlp_pattern))
+    return [sigs[i % len(sigs)] for i in range(cfg.n_layers)]
+
+
+def lm_specs(cfg: ArchConfig) -> dict:
+    """ParamSpec tree of the full LM."""
+    specs = {
+        "embed": embed_specs(cfg.vocab, cfg.d_model),
+        "final_norm": norm_specs(cfg.d_model, cfg.norm),
+        "layers": [blocks.block_specs(sig, cfg) for sig in layer_sigs(cfg)],
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = unembed_specs(cfg.vocab, cfg.d_model)
+    return specs
+
+
+def _logits(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return apply_unembed(params.get("unembed"), params["embed"], x,
+                         cfg.logit_softcap)
+
+
+def lm_apply(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
+             collect_state: bool = False,
+             lengths: torch.Tensor | None = None):
+    """tokens (B, N) -> (logits (B, N, vocab) f32, states or None).
+
+    ``lengths`` (B,): true lengths of right-padded ragged rows — each row's
+    padded tail is masked in the scan, so the collected states are exactly
+    the states at each row's true length (ragged prefill).
+    """
+    x = apply_embed(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
+    states = []
+    for p, sig in zip(params["layers"], layer_sigs(cfg)):
+        x, st = blocks.block_sequence(p, x, sig, cfg, lengths=lengths)
+        states.append(st)
+    return _logits(cfg, params, x), (states if collect_state else None)
+
+
+def lm_decode_step(cfg: ArchConfig, params: dict, token_t: torch.Tensor,
+                   states: list):
+    """One-token decode.  token_t: (B, 1) -> (logits (B, 1, V), states)."""
+    x = apply_embed(params["embed"], token_t, getattr(torch, cfg.compute_dtype))
+    new_states = []
+    for p, st, sig in zip(params["layers"], states, layer_sigs(cfg)):
+        x, st = blocks.block_step(p, x, st, sig, cfg)
+        new_states.append(st)
+    return _logits(cfg, params, x), new_states
+
+
+def lm_prefill_chunk(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+                     states: list, *,
+                     length_mask: torch.Tensor | None = None):
+    """Advance every layer's carry by one fixed-shape chunk of tokens.
+
+    tokens: (B, C); length_mask: (B, C) bool, True at valid positions (a
+    prefix per row).  Returns (logits (B, C, V) f32, new states).  Logits at
+    padded positions are garbage by construction; callers read row i at its
+    last valid position.
+    """
+    x = apply_embed(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
+    new_states = []
+    for p, st, sig in zip(params["layers"], states, layer_sigs(cfg)):
+        x, st = blocks.block_chunk(p, x, st, sig, cfg, mask=length_mask)
+        new_states.append(st)
+    return _logits(cfg, params, x), new_states
+
+
+def lm_state_init(cfg: ArchConfig, batch: int, device="cuda") -> list:
+    """The empty (⊕-identity) decode state of every layer."""
+    dev = resolve_device(device)
+    return [blocks.block_state_init(sig, cfg, batch, dev)
+            for sig in layer_sigs(cfg)]
+
+
+def lm_state_select(mask: torch.Tensor, a: list, b: list) -> list:
+    """Per slot: ``a``'s state where ``mask`` (B,) is True, else ``b``'s.
+
+    Every leaf keeps its batch on axis 0, so the engine resets freed slots
+    with ``lm_state_select(freed, init, states)`` and keeps idle slots with
+    ``lm_state_select(live, new, old)``.
+    """
+    def leaf(x, y):
+        return torch.where(mask.reshape((-1,) + (1,) * (x.ndim - 1)), x, y)
+
+    return [ScanState(*(leaf(x, y) for x, y in zip(sa, sb)))
+            for sa, sb in zip(a, b)]

@@ -1,0 +1,286 @@
+"""Inference engines — port of the core of ``repro.serving.engine``.
+
+* :func:`generate` — wave generation: prefill the whole batch (ragged
+  right-padded prompts allowed), then one-token decode steps.
+* :class:`StreamingEngine` — chunked-prefill continuous batching over
+  ``n_slots`` persistent decode slots.  Pure-Python bookkeeping decides what
+  each slot feeds next; one fixed-shape step advances a *mixed* batch —
+  mid-prefill slots consume up to ``chunk`` prompt tokens, decoding slots
+  one token, free slots are all padding — and freed slots are reset to the
+  ⊕-identity carry in the same tick.
+
+Both engines run under ``torch.inference_mode()`` on the device of the
+parameters, and draw the token-``t`` sample of request ``rid`` from
+:func:`~repro_torch.serving.sampler.request_seed` ``(seed, rid, t)``, so
+streaming and wave generation sample identically.
+
+Not yet ported (later slices): the prefix cache, request export/inject,
+snapshot/restore, deadlines, ``max_queue`` shedding, slot quarantine and
+the observability instruments.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.models.factory import ModelAPI
+from repro_torch.models.lm import (
+    lm_prefill_chunk,
+    lm_state_init,
+    lm_state_select,
+)
+from repro_torch.serving.sampler import greedy_sampler, request_seed
+
+
+def _device_of(params: dict) -> torch.device:
+    return params["embed"]["table"].device
+
+
+def _sample(sampler: Callable, logits: torch.Tensor, seed: int, rids,
+            steps) -> list[int]:
+    """Sample each row of (B, 1, V) logits with its (request, step) seed."""
+    seeds = [request_seed(seed, rid, st) for rid, st in zip(rids, steps)]
+    return sampler(logits, seeds)[:, 0].tolist()
+
+
+# ---------------------------------------------------------------------------
+# Wave generation
+# ---------------------------------------------------------------------------
+
+
+@torch.inference_mode()
+def generate(api: ModelAPI, params: dict, prompts, max_new_tokens: int, *,
+             sampler: Callable = greedy_sampler, seed: int = 0,
+             prompt_lengths=None):
+    """Wave generation.  Returns (tokens (B, max_new) int64, final states).
+
+    ``prompts``: (B, P) token ids.  ``prompt_lengths``: optional (B,) true
+    lengths of right-padded ragged prompts — the prefill masks each row's
+    padded tail, row ``i``'s first sample reads the logits at its true last
+    token, and decode continues from exact per-row states.
+    """
+    device = _device_of(params)
+    prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
+                              device=device)
+    if prompts.ndim != 2 or 0 in prompts.shape:
+        raise ValueError(f"prompts must be (B, P) with B, P >= 1; got "
+                         f"{tuple(prompts.shape)}")
+    if max_new_tokens <= 0:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    b, p = prompts.shape
+    batch = {"tokens": prompts}
+    if prompt_lengths is not None:
+        lens_np = np.asarray(prompt_lengths)
+        if lens_np.shape != (b,):
+            raise ValueError(f"prompt_lengths shape {lens_np.shape} != ({b},)")
+        if (lens_np < 1).any() or (lens_np > p).any():
+            raise ValueError(f"prompt_lengths must lie in [1, {p}]; got "
+                             f"{lens_np.tolist()}")
+        batch["lengths"] = torch.as_tensor(lens_np, dtype=torch.int64,
+                                           device=device)
+    logits, states = api.prefill(params, batch)
+    if prompt_lengths is not None:
+        idx = (batch["lengths"] - 1)[:, None, None].expand(-1, 1,
+                                                           logits.shape[-1])
+        last = torch.gather(logits, 1, idx)                      # (B, 1, V)
+    else:
+        last = logits[:, -1:]
+    rids = list(range(b))
+    out = [_sample(sampler, last, seed, rids, [0] * b)]
+    for t in range(1, max_new_tokens):
+        tok = torch.tensor(out[-1], dtype=torch.int64, device=device)[:, None]
+        logits, states = api.decode_step(params, {"token": tok,
+                                                  "states": states})
+        out.append(_sample(sampler, logits, seed, rids, [t] * b))
+    return torch.tensor(out, dtype=torch.int64).T, states
+
+
+# ---------------------------------------------------------------------------
+# Chunked-prefill continuous batching
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Slot:
+    """Scheduler-side bookkeeping for one decode slot."""
+
+    request_id: int
+    pending: np.ndarray | None   # prompt tokens not yet consumed (None once decoding)
+    tokens: list                 # generated token ids
+    remaining: int               # generated tokens still owed
+    n_sampled: int = 0           # per-request step counter (seed schedule)
+    last_token: int = 0          # input token while decoding
+
+
+def _validate_request(prompt, max_new_tokens: int) -> np.ndarray:
+    prompt = np.asarray(prompt)
+    if prompt.ndim > 1:
+        raise ValueError(f"prompt must be 1-D, got shape {prompt.shape}")
+    if not np.issubdtype(prompt.dtype, np.integer):
+        raise ValueError(f"prompt must hold token ids (integers), got "
+                         f"dtype {prompt.dtype}")
+    prompt = prompt.astype(np.int64).reshape(-1)
+    if prompt.size == 0:
+        raise ValueError("empty prompt")
+    if max_new_tokens <= 0:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    return prompt
+
+
+class StreamingEngine:
+    """Chunked-prefill continuous batching over ``n_slots`` decode slots.
+
+    All-Aaren models only: the decode state is a position-free ``(m, u, w)``
+    carry per layer and head, so admitting a request needs no cache
+    reshaping and any ``chunk`` works (masked positions are ⊕-identity).
+
+    Slot-carry lifecycle: **free slots always hold the ⊕-identity init
+    carry, bitwise.**  A completed request's slot is reset in the same
+    tick, and free rows run all-padding through the step under a masked
+    select that keeps their carry bit for bit — a masked leaf folded into an
+    *empty* carry would add ``exp(NEG_INF - NEG_INF) = 1`` to ``u``.
+    """
+
+    def __init__(self, api: ModelAPI, params: dict, *, n_slots: int = 4,
+                 chunk: int = 16, sampler: Callable = greedy_sampler,
+                 seed: int = 0):
+        pattern = api.cfg.effective_pattern()
+        if any(m != "aaren" for m in pattern):
+            raise ValueError(
+                "the port's StreamingEngine serves all-Aaren models only; "
+                f"pattern {pattern} has other mixers")
+        if n_slots < 1 or chunk < 1:
+            raise ValueError(f"need n_slots >= 1 and chunk >= 1; got "
+                             f"{n_slots}, {chunk}")
+        self.api = api
+        self.params = params
+        self.n_slots = n_slots
+        self.chunk = chunk
+        self.sampler = sampler
+        self.seed = seed
+        self.device = _device_of(params)
+        self._init_states = lm_state_init(api.cfg, n_slots, self.device)
+        self.states = self._init_states
+        self.active: list[_Slot | None] = [None] * n_slots
+        self.queue: list[_Slot] = []
+        self.finished: dict[int, list[int]] = {}
+        self._next_id = 0
+
+    # ------------------------------------------------------------------ API
+    def submit(self, prompt, max_new_tokens: int) -> int:
+        """Queue a request.  prompt: (P,) token ids, P >= 1.  Returns its id."""
+        prompt = _validate_request(prompt, max_new_tokens)
+        rid = self._next_id
+        self._next_id += 1
+        self.queue.append(_Slot(request_id=rid, pending=prompt, tokens=[],
+                                remaining=int(max_new_tokens)))
+        return rid
+
+    @torch.inference_mode()
+    def warmup(self) -> float:
+        """Run the fixed-shape step once (results discarded; ``self.states``
+        untouched).  Returns the wall seconds spent."""
+        t0 = time.perf_counter()
+        self._advance(np.zeros((self.n_slots, self.chunk), np.int64),
+                      np.ones((self.n_slots,), np.int64))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
+    @torch.inference_mode()
+    def reset(self, mask) -> None:
+        """Return the carries of slots where ``mask`` (S,) is True to init."""
+        mask = torch.as_tensor(np.asarray(mask, bool), device=self.device)
+        self.states = lm_state_select(mask, self._init_states, self.states)
+
+    @torch.inference_mode()
+    def step(self) -> int:
+        """One engine tick: admit, advance the mixed batch, sample.
+
+        Returns the number of tokens emitted this tick (0 when idle).
+        """
+        self._admit()
+        if all(s is None for s in self.active):
+            return 0
+        # Free slots stay all-padding (lengths == 0).
+        tokens = np.zeros((self.n_slots, self.chunk), np.int64)
+        lengths = np.zeros((self.n_slots,), np.int64)
+        for i, slot in enumerate(self.active):
+            if slot is None:
+                continue
+            if slot.pending is not None:      # mid-prefill: feed next chunk
+                take = min(slot.pending.size, self.chunk)
+                tokens[i, :take] = slot.pending[:take]
+                lengths[i] = take
+            else:                             # decoding: feed last sample
+                tokens[i, 0] = slot.last_token
+                lengths[i] = 1
+        last, self.states = self._advance(tokens, lengths)
+
+        ready = []
+        for i, slot in enumerate(self.active):
+            if slot is None:
+                continue
+            if slot.pending is not None:
+                slot.pending = slot.pending[int(lengths[i]):]
+                if slot.pending.size:         # prompt not done — no sample
+                    continue
+                slot.pending = None
+            ready.append(i)
+        emitted = 0
+        completed = np.zeros((self.n_slots,), bool)
+        if ready:
+            rows = [self.active[i] for i in ready]
+            toks = _sample(self.sampler, last[ready], self.seed,
+                           [s.request_id for s in rows],
+                           [s.n_sampled for s in rows])
+            for i, slot, t in zip(ready, rows, toks):
+                slot.last_token = t
+                slot.tokens.append(t)
+                slot.n_sampled += 1
+                slot.remaining -= 1
+                emitted += 1
+                if slot.remaining <= 0:
+                    self.finished[slot.request_id] = slot.tokens
+                    self.active[i] = None
+                    completed[i] = True
+        if completed.any():
+            self.reset(completed)
+        return emitted
+
+    def run(self) -> dict[int, list[int]]:
+        """Serve until queue and slots drain.  Returns {request_id: tokens}."""
+        while self.queue or any(s is not None for s in self.active):
+            self.step()
+        return self.finished
+
+    # ------------------------------------------------------------ internals
+    def _advance(self, tokens: np.ndarray, lengths: np.ndarray):
+        """The fixed-shape step: (S, C) tokens + per-slot valid lengths ->
+        (last-valid logits (S, 1, V), next states).  Leaves ``self.states``
+        as it is; :meth:`step` stores the result."""
+        toks = torch.as_tensor(tokens, device=self.device)
+        lens = torch.as_tensor(lengths, device=self.device)
+        mask = torch.arange(self.chunk, device=self.device)[None, :] \
+            < lens[:, None]
+        logits, new_states = lm_prefill_chunk(
+            self.api.cfg, self.params, toks, self.states, length_mask=mask)
+        # An all-padding row (lengths == 0) keeps its carry bit for bit.
+        new_states = lm_state_select(lens > 0, new_states, self.states)
+        # lengths == 0 would gather index -1: clamp to 0 (never sampled).
+        last_idx = torch.clamp(lens - 1, min=0)
+        last = torch.gather(
+            logits, 1, last_idx[:, None, None].expand(-1, 1, logits.shape[-1]))
+        return last, new_states
+
+    def _admit(self):
+        """Move queued requests into free slots (free slots already hold
+        the init carry)."""
+        for i in range(self.n_slots):
+            if self.active[i] is None and self.queue:
+                self.active[i] = self.queue.pop(0)
