@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+check them.
 
 Run from the root of the repository, on a machine with one NVIDIA H100:
 
@@ -10,25 +11,37 @@ own error):
 
 1. Toolchain and card: ``nvidia-smi``, ``torch.version.cuda``, ``nvcc``;
    TF32 off for matmuls and cuDNN.
-2. Build every CUDA kernel of the path from ``src/repro_torch/csrc``.
-3. Each kernel against its plain PyTorch version on the card: edge shapes,
-   the inputs of a real serving tick at the first and last layer, and a
-   small f32 model served on the card (kernels) and on the CPU (plain
-   versions) with identical greedy tokens.
-4. Full width: ``phi3-mini-3.8b`` as registered (bf16, 32 layers, d_model
-   3072, 32 x 96 heads), random weights from a seed, 16 requests through
-   the ``StreamingEngine`` (8 slots, chunk 16, prompts of 32-256 tokens,
-   32 new tokens each), then one wave ``generate`` call (B = 4, P = 128, 8
-   new tokens).  Launch counts are zeroed just before and read just after.
-   Then a ``torch.profiler`` view of five ticks (device busy share, largest
-   kernels) and each kernel's device time at the serving shape (a replayed
-   CUDA graph, so host overhead drops out) beside its eager per-call time,
-   its plain version's and its bound.
+2. Build every CUDA kernel of the paths from ``src/repro_torch/csrc``, one
+   ``nvcc`` per source, all started together.
+3. Each kernel against its plain PyTorch version on the card: B1 (serving
+   form and residual form) and B2 on edge shapes, the inputs of a real
+   serving tick at the first and last layer, a small f32 model served on the
+   card (kernels) and on the CPU (plain versions) with identical greedy
+   tokens, and the same model's loss, every parameter gradient and three
+   train steps on the card against the CPU.
+4. Full-width serving: ``phi3-mini-3.8b`` as registered (bf16, 32 layers,
+   d_model 3072, 32 x 96 heads), random weights from a seed, 16 requests
+   through the ``StreamingEngine`` (8 slots, chunk 16, prompts of 32-256
+   tokens, 32 new tokens each), then one wave ``generate`` call (B = 4,
+   P = 128, 8 new tokens).  Launch counts are zeroed just before and read
+   just after.  Then a ``torch.profiler`` view of five ticks and B1's
+   device time at the serving shape (a replayed CUDA graph, so host overhead
+   drops out) beside its eager per-call time, its plain version's and its
+   bound.
+4b. Full-width training: the serving model freed, ``phi3-mini-3.8b`` as
+   registered (``remat="block"``, AdamW) through ``make_train_step`` and
+   ``run_train_loop`` on ``SyntheticLMIterator`` batches of 4 x 1024
+   tokens, 1 warm-up and 4 measured steps; counts zeroed just before and
+   read just after (B1 64 and B2 32 launches a step).  B1's and B2's inputs
+   at layers 0 and 31 are captured in the first step and held against the
+   plain versions.  Then step time, tokens/s, peak memory, MFU, a profiler
+   view of one step and both kernels' device time at the training shape.
 5. Result lines: the kernels' JSON, the card, and the contract line.
 """
 
 from __future__ import annotations
 
+import gc
 import importlib.metadata
 import importlib.util
 import json
@@ -42,9 +55,11 @@ ROOT = Path(__file__).resolve().parent
 ARCH = "phi3-mini-3.8b"
 SLOTS, CHUNK, REQUESTS, MAX_NEW = 8, 16, 16, 32
 GEN_B, GEN_P, GEN_NEW = 4, 128, 8
+TRAIN_B, TRAIN_N, TRAIN_WARM, TRAIN_MEASURED = 4, 1024, 1, 4
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 F32_OPS_PER_S = 67e12             # the same, f32 outside the tensor cores
-TOL = dict(rtol=1e-4, atol=1e-4)  # the JAX suite's bar for this kernel
+BF16_DENSE_FLOPS = 989e12         # the same, bf16 dense tensor cores
+TOL = dict(rtol=1e-4, atol=1e-4)  # the JAX suite's bar for these kernels
 
 
 def _card_line() -> str:
@@ -64,11 +79,11 @@ def _phase(name: str, t0: float) -> None:
 
 
 def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, device) for v in tree]
-    return tree.to(device)
+    """A copy of a parameter tree on ``device`` (never the same tensors:
+    the train step updates its parameters in place)."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.detach().to(device, copy=True), tree)
 
 
 def _scan_inputs(torch, np, r, n, d, carry, seed, pad_rows=(), spread=3.0):
@@ -112,6 +127,73 @@ def _compare_scan(torch, args, label) -> float:
     return err
 
 
+def _compare_scan_residuals(torch, args, label) -> float:
+    """B1's residual form against its plain version, and against its own
+    serving form: the residuals change none of the serving outputs."""
+    from repro_torch.kernels.aaren_scan import aaren_scan, aaren_scan_plain
+
+    got = aaren_scan(*args, return_residuals=True)
+    serve = aaren_scan(*args)
+    want = aaren_scan_plain(*args, return_residuals=True)
+    torch.cuda.synchronize()
+    _require(all(torch.equal(a, b) for a, b in zip(got[:4], serve)),
+             f"{label}: the residual form changed a serving output")
+    _require(torch.equal(got[1], want[1]) and torch.equal(got[4], want[4]),
+             f"{label}: m_f or m_all differs from the plain version")
+    err = 0.0
+    for name, i in (("o", 0), ("u_f", 2), ("w_f", 3), ("u_all", 5)):
+        _require(bool(torch.isfinite(got[i]).all()),
+                 f"{label}: kernel {name} is not finite")
+        torch.testing.assert_close(got[i], want[i], **TOL,
+                                   msg=lambda m: f"{label} {name}: {m}")
+        err = max(err, (got[i] - want[i]).abs().max().item())
+    print(f"  {label} (residuals): max|kernel - plain| = {err:.3e}, m_all "
+          "bit-equal")
+    return err
+
+
+def _bwd_inputs(torch, np, fwd_args, seed, zero_u=False):
+    """B2's inputs: the plain forward's residuals on the card, cotangents
+    from numpy, the seed (-m_f, g_w, -g_u)."""
+    from repro_torch.kernels.aaren_scan import aaren_scan_plain
+
+    s, v, m0, u0, w0 = fwd_args
+    o, m_f, _, _, m_all, u_all = aaren_scan_plain(s, v, m0, u0, w0,
+                                                  return_residuals=True)
+    rng = np.random.default_rng(seed)
+    r, n, d = v.shape
+    g_o, g_u, g_w = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).cuda() for shape in ((r, n, d), (r, 1), (r, d)))
+    if zero_u:  # empty-state positions: 1/u must be zeroed, not inf
+        u_all = u_all.clone()
+        u_all[:, ::3] = 0.0
+    return [s, v, o, m_all, u_all, g_o, -m_f, g_w, -g_u]
+
+
+def _compare_bwd(torch, args, label) -> float:
+    """B2 (CUDA kernel) against its plain version on the same tensors, each
+    output scaled by max |plain| (the JAX suite's gradient bar)."""
+    from repro_torch.kernels.aaren_scan_bwd import (
+        aaren_scan_bwd,
+        aaren_scan_bwd_plain,
+    )
+
+    got = aaren_scan_bwd(*args)
+    want = aaren_scan_bwd_plain(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(("ds", "dv", "n1", "g1", "b1"), got, want):
+        _require(bool(torch.isfinite(a).all()),
+                 f"{label}: kernel {name} is not finite")
+        scale = max(b.abs().max().item(), 1e-6)
+        torch.testing.assert_close(a / scale, b / scale, **TOL,
+                                   msg=lambda m: f"{label} {name}: {m}")
+        err = max(err, (a - b).abs().max().item())
+    print(f"  {label} (B2): R={args[0].shape[0]} N={args[0].shape[1]} "
+          f"d={args[1].shape[2]} max|kernel - plain| = {err:.3e}")
+    return err
+
+
 def _time_ms(torch, fn, n_iter: int, reps: int = 5) -> float:
     """Median over ``reps`` of the mean CUDA-event time of ``n_iter`` calls.
 
@@ -148,100 +230,148 @@ def _graph_ms(torch, fn, n_iter: int) -> float:
     return _time_ms(torch, graph.replay, 1) / n_iter
 
 
-def _tick_profile(torch, eng, reqs, n_ticks: int = 5):
-    """Device busy time of ``n_ticks`` engine ticks from ``torch.profiler``.
+def _device_profile(torch, fn, n: int):
+    """Device busy time of ``n`` calls of ``fn`` from ``torch.profiler``.
 
-    Returns (wall ms per tick, device ms per tick, [(kernel, device ms per
-    tick), ...] largest first), or None when the profiler saw no device
+    Returns (wall ms per call, device ms per call, [(kernel, device ms per
+    call), ...] largest first), or None when the profiler saw no device
     time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for p in reqs:
-        eng.submit(p, MAX_NEW)
-    eng.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_ticks):
-            eng.step()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n_ticks
-    kernels = [(e.key, e.self_device_time_total / 1e3 / n_ticks)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [(e.key, e.self_device_time_total / 1e3 / n)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    eng.run()
     device_ms = sum(ms for _, ms in kernels)
     if device_ms == 0:
         return None
     return wall_ms, device_ms, sorted(kernels, key=lambda kv: -kv[1])
 
 
-def main() -> int:
-    import numpy as np
-    import torch
+# Kernel-name patterns of each group of the device-time breakdown; the
+# first match wins, and a kernel that matches none is "other".
+KERNEL_GROUPS = (
+    ("B1 aaren_scan_fwd_kernel", ("aaren_scan_fwd",)),
+    ("B2 aaren_scan_bwd_kernel", ("aaren_scan_bwd",)),
+    ("GEMM/GEMV (bf16 and f32)", ("gemm", "gemv", "nvjet", "xmma", "sgemm")),
+    ("reductions (norms, sums, log-softmax)", ("reduce", "softmax", "norm")),
+    ("elementwise and copies (casts, AdamW, scaling)",
+     ("elementwise", "copy", "Memcpy", "Memset", "fill", "index", "cat",
+      "where", "scatter", "gather")),
+)
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_config, smoke_config
-    from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.aaren_scan import aaren_scan, aaren_scan_plain
-    from repro_torch.models.factory import build
-    from repro_torch.models.lm import lm_state_init
-    from repro_torch.models.param import count_params
-    from repro_torch.serving.engine import StreamingEngine, generate
-    from repro_torch.serving.sampler import greedy_sampler
 
-    t0 = time.perf_counter()
-    # 1. Toolchain and card ------------------------------------------------
-    _phase("1 toolchain and card", t0)
-    card = _card_line()
-    print(f"card: {card}")
-    nvcc = subprocess.run([kbuild._nvcc(), "--version"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()
-    triton = ("triton " + importlib.metadata.version("triton")
-              if importlib.util.find_spec("triton") else "no triton")
-    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"torch.version.cuda {torch.version.cuda}, nvcc: {nvcc[-1]}, "
-          f"{triton}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
-          f"cudnn {torch.backends.cudnn.allow_tf32}")
+def _group(key: str) -> str:
+    for name, patterns in KERNEL_GROUPS:
+        if any(p.lower() in key.lower() for p in patterns):
+            return name
+    return "other"
 
-    # 2. Build ---------------------------------------------------------------
-    _phase("2 build", t0)
-    tb = time.perf_counter()
-    logs = kbuild.build(kbuild.KERNELS)
-    for name in kbuild.KERNELS:
-        kbuild.load(name)
-        print(f"  built {kbuild.library_path(name).name}")
-        for line in logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {line.strip()}")
-    print(f"build seconds: {time.perf_counter() - tb:.2f}")
 
-    # 3. Kernels against their plain versions --------------------------------
-    _phase("3 kernels against plain versions", t0)
-    max_err = 0.0
-    edge_cases = [
-        ("single token, empty carry", 1, 1, 8, False, (), 3.0),
-        ("odd N, R % 32 != 0, carry", 7, 5, 96, True, (), 3.0),
-        ("prime N, all-padding rows", 37, 97, 96, False, (0, 5), 3.0),
-        ("serving N, padding row + carry", 33, 16, 96, True, (3,), 3.0),
-        ("extreme scores (+-80)", 6, 48, 128, True, (), 80.0),
-        ("widest d", 5, 33, 256, True, (), 3.0),
-    ]
-    for i, (label, r, n, d, carry, pad, spread) in enumerate(edge_cases):
+def _print_profile(prof, what: str, card: str, top: int = 10) -> None:
+    if prof is None:
+        print(f"  {what} profile: the profiler saw no device time (not "
+              "measured)")
+        return
+    wall_ms, device_ms, kernels = prof
+    print(f"  {what} profile: wall {wall_ms:.3f} ms, device busy "
+          f"{device_ms:.3f} ms ({device_ms / wall_ms:.1%})  [{card}]")
+    groups: dict[str, float] = {}
+    for key, ms in kernels:
+        groups[_group(key)] = groups.get(_group(key), 0.0) + ms
+    for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"    {ms:9.3f} ms  {ms / device_ms:6.1%}  group: {name}")
+    for key, ms in kernels[:top]:
+        print(f"    {ms:9.3f} ms  {key[:100]}")
+
+
+def _bound(nbytes: float, nops: float):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def _b1_bound(r, n, d, residuals: bool):
+    """B1: each input read once, each output written once (f32); ~4 f32
+    operations per element of w per token plus ~5 per token of a row."""
+    nbytes = 4 * r * n * (2 * d + 1) + 8 * r * (d + 2)
+    if residuals:
+        nbytes += 8 * r * n
+    return _bound(nbytes, r * n * (4 * d + 5)) + (nbytes,)
+
+
+def _b2_bound(r, n, d):
+    """B2: s, m, u, v, o, g and the seed read once, ds, dv and the final
+    carry written once (f32); ~9 f32 operations per element of G per token
+    plus ~12 per token of a row."""
+    nbytes = 4 * r * n * (4 * d + 4) + 8 * r * (d + 2)
+    return _bound(nbytes, r * n * (9 * d + 12)) + (nbytes,)
+
+
+def _kernel_times(torch, fn, plain, n_iter, plain_iter):
+    """(device ms, eager call ms, plain device ms, plain eager call ms)."""
+    return (_graph_ms(torch, fn, n_iter), _time_ms(torch, fn, n_iter),
+            _graph_ms(torch, plain, plain_iter),
+            _time_ms(torch, plain, plain_iter))
+
+
+EDGE_CASES = [
+    ("single token, empty carry", 1, 1, 8, False, (), 3.0),
+    ("odd N, R % 32 != 0, carry", 7, 5, 96, True, (), 3.0),
+    ("prime N, all-padding rows", 37, 97, 96, False, (0, 5), 3.0),
+    ("serving N, padding row + carry", 33, 16, 96, True, (3,), 3.0),
+    ("extreme scores (+-80)", 6, 48, 128, True, (), 80.0),
+    ("widest d", 5, 33, 256, True, (), 3.0),
+]
+BWD_ONLY_CASES = [
+    ("u == 0 residual positions", 9, 70, 96, True, (), 3.0),
+    ("extreme scores (+-80), training N", 4, 1024, 96, True, (), 80.0),
+    ("widest d, long row", 3, 300, 256, False, (1,), 3.0),
+]
+
+
+def phase3_kernels(torch, np) -> tuple[float, float]:
+    """B1 (both forms) and B2 against their plain versions on edge shapes.
+    Returns (max |err| of B1, of B2)."""
+    b1_err = b2_err = 0.0
+    for i, (label, r, n, d, carry, pad, spread) in enumerate(EDGE_CASES):
         args = _scan_inputs(torch, np, r, n, d, carry, seed=i,
                             pad_rows=pad, spread=spread)
-        max_err = max(max_err, _compare_scan(torch, args, label))
+        b1_err = max(b1_err, _compare_scan(torch, args, label),
+                     _compare_scan_residuals(torch, args, label))
+        b2_err = max(b2_err, _compare_bwd(
+            torch, _bwd_inputs(torch, np, args, seed=50 + i), label))
+    for i, (label, r, n, d, carry, pad, spread) in enumerate(BWD_ONLY_CASES):
+        args = _scan_inputs(torch, np, r, n, d, carry, seed=20 + i,
+                            pad_rows=pad, spread=spread)
+        bwd = _bwd_inputs(torch, np, args, seed=70 + i,
+                          zero_u=label.startswith("u == 0"))
+        b2_err = max(b2_err, _compare_bwd(torch, bwd, label))
+    return b1_err, b2_err
 
-    # A small f32 model: kernel path on the card == plain path on the CPU.
+
+def phase3_small_model(torch, np) -> None:
+    """A small f32 model on the card (kernels) against the CPU (plain
+    versions): greedy serving tokens, loss and gradients, three steps."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.synthetic import SyntheticLMIterator
+    from repro_torch.kernels.aaren_scan import aaren_scan
+    from repro_torch.kernels.aaren_scan_bwd import aaren_scan_bwd
+    from repro_torch.models.factory import build
+    from repro_torch.serving.engine import StreamingEngine
+    from repro_torch.train.optim import make_optimizer, warmup_cosine
+    from repro_torch.train.state import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
     small = build(smoke_config(ARCH))
     cpu_params = small.init(0, device="cpu")
     prompts = [np.random.default_rng(100 + i).integers(0, small.cfg.vocab, n)
@@ -258,13 +388,58 @@ def main() -> int:
     print(f"  small f32 model: greedy tokens on the card == on the CPU "
           f"({sum(map(len, outs['cpu']))} tokens)")
 
-    # 4. Full width ------------------------------------------------------------
-    _phase("4 full width", t0)
+    data = SyntheticLMIterator(vocab=small.cfg.vocab, seq_len=32, batch=4)
+    batches = [next(data) for _ in range(3)]
+    grads, losses = {}, {}
+    launches = (aaren_scan.n_launches, aaren_scan_bwd.n_launches)
+    for dev in ("cpu", "cuda"):
+        params = _to(cpu_params, dev)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
+        loss, _ = small.loss(params, batch)
+        grads[dev] = torch.autograd.grad(loss, leaves)
+        losses[dev] = [loss.item()]
+        opt = make_optimizer("adamw", warmup_cosine(3e-3, 1, 3))
+        state = init_train_state(params, opt)
+        step = make_train_step(small.loss, opt)
+        for b in batches:
+            state, metrics = step(state, b)
+            losses[dev].append(metrics["loss"].item())
+    _require(aaren_scan.n_launches > launches[0]
+             and aaren_scan_bwd.n_launches > launches[1],
+             "small model: the card path launched no scan kernel")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    _require(rel[0] <= 1e-5, f"small model: loss on the card {losses['cuda']}"
+             f" != on the CPU {losses['cpu']}")
+    gerr = 0.0
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        scale = max(b.abs().max().item(), 1e-6)
+        err = ((a.cpu() - b).abs().max().item()) / scale
+        _require(err <= TOL["rtol"], f"small model: a gradient differs by "
+                 f"{err:.3e} of its max between the card and the CPU")
+        gerr = max(gerr, err)
+    _require(max(rel[1:]) <= 1e-4, f"small model: train-step losses on the "
+             f"card {losses['cuda'][1:]} != on the CPU {losses['cpu'][1:]}")
+    print(f"  small f32 model: loss |card - CPU| / CPU = {rel[0]:.2e}; "
+          f"{len(grads['cpu'])} gradients within {gerr:.2e} of max |CPU|; "
+          f"3 train-step losses within {max(rel[1:]):.2e} relative")
+
+
+def phase4_serving(torch, np, card: str):
+    """Full-width serving.  Returns (B1 launches, B1 row of the kernels'
+    JSON at the serving shape, max |err| over captured inputs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.aaren_scan import aaren_scan, aaren_scan_plain
+    from repro_torch.models.factory import build
+    from repro_torch.models.lm import lm_state_init
+    from repro_torch.models.param import count_params
+    from repro_torch.serving.engine import StreamingEngine, generate
+    from repro_torch.serving.sampler import greedy_sampler
+
     cfg = get_config(ARCH)
-    _require((cfg.attn_mode, cfg.param_dtype, cfg.compute_dtype,
-              cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.resolved_head_dim,
-              cfg.d_ff, cfg.vocab) == ("aaren", "bfloat16", "bfloat16", 32,
-                                       3072, 32, 96, 8192, 32064), str(cfg))
     api = build(cfg)
     ti = time.perf_counter()
     params = api.init(0, device="cuda")
@@ -281,9 +456,9 @@ def main() -> int:
     captured = []
     real_scan = ops.aaren_scan
 
-    def capture(*args):
+    def capture(*args, **kw):
         captured.append([a.clone() for a in args])
-        return real_scan(*args)
+        return real_scan(*args, **kw)
 
     cap = StreamingEngine(api, params, n_slots=SLOTS, chunk=CHUNK)
     for p in reqs[:SLOTS]:
@@ -295,9 +470,10 @@ def main() -> int:
         ops.aaren_scan = real_scan
     _require(len(captured) == cfg.n_layers,
              f"captured {len(captured)} scans, want {cfg.n_layers}")
+    err = 0.0
     for layer in (0, cfg.n_layers - 1):
-        max_err = max(max_err, _compare_scan(
-            torch, captured[layer], f"serving tick, layer {layer}"))
+        err = max(err, _compare_scan(torch, captured[layer],
+                                     f"serving tick, layer {layer}"))
     del cap
 
     finite = {"ok": True}
@@ -350,56 +526,277 @@ def main() -> int:
           f"{served / serve_s:.1f} tok/s  [{card}]")
     print(f"  generate B={GEN_B} P={GEN_P} new={GEN_NEW}: {gen_s:.3f} s  "
           f"[{card}]")
-    print(f"  B1 launches on the main path: {launches} = {cfg.n_layers} x "
-          f"({ticks} ticks + 1 prefill)")
+    print(f"  B1 launches on the serving path: {launches} = {cfg.n_layers} x"
+          f" ({ticks} ticks + 1 prefill)")
 
     # Where a tick's time goes (after the counts were read).
-    prof = _tick_profile(torch, eng, reqs[:SLOTS])
-    if prof is None:
-        print("  tick profile: the profiler saw no device time (not measured)")
-    else:
-        wall_ms, device_ms, kernels = prof
-        print(f"  tick profile over 5 ticks: wall {wall_ms:.3f} ms, device "
-              f"busy {device_ms:.3f} ms per tick ({device_ms / wall_ms:.1%})"
-              f"  [{card}]")
-        for key, ms in kernels[:8]:
-            print(f"    {ms:9.3f} ms/tick  {key[:100]}")
+    for p in reqs[:SLOTS]:
+        eng.submit(p, MAX_NEW)
+    eng.step()
+    _print_profile(_device_profile(torch, eng.step, 5), "tick (5 ticks)",
+                   card)
+    eng.run()
 
     # B1 at the serving shape: device time from a replayed CUDA graph, the
     # eager per-call time (wrapper included), the plain version, the bound.
     s, v, m0, u0, w0 = captured[0]
     r, n = s.shape
     d = v.shape[-1]
-    kernel_ms = _graph_ms(torch, lambda: aaren_scan(s, v, m0, u0, w0), 200)
-    plain_ms = _graph_ms(torch, lambda: aaren_scan_plain(s, v, m0, u0, w0),
-                         20)
-    kernel_call_ms = _time_ms(torch, lambda: aaren_scan(s, v, m0, u0, w0),
-                              200)
-    plain_call_ms = _time_ms(torch,
-                             lambda: aaren_scan_plain(s, v, m0, u0, w0), 20)
-    # Each input read once, each output written once (f32); the f32 work is
-    # ~4 operations per element of w per token plus ~5 per token of a row.
-    nbytes = 4 * r * n * (2 * d + 1) + 8 * r * (d + 2)
-    nops = r * n * (4 * d + 5)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / F32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    kernel_ms, call_ms, plain_ms, plain_call_ms = _kernel_times(
+        torch, lambda: aaren_scan(s, v, m0, u0, w0),
+        lambda: aaren_scan_plain(s, v, m0, u0, w0), 200, 20)
+    bound_ms, bound_by, nbytes = _b1_bound(r, n, d, residuals=False)
     print(f"  B1 at R={r} N={n} d={d}: device {kernel_ms * 1e3:.3f} us "
-          f"(eager call {kernel_call_ms * 1e3:.2f} us), plain device "
+          f"(eager call {call_ms * 1e3:.2f} us), plain device "
           f"{plain_ms * 1e3:.2f} us (eager call {plain_call_ms * 1e3:.2f} "
-          f"us), bound {bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B, "
-          f"{nops} f32 ops)  [{card}]")
+          f"us), bound {bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B)"
+          f"  [{card}]")
+    row = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    return launches, row, err
+
+
+def phase4b_training(torch, np, card: str, cfg):
+    """Training of ``cfg`` (full width in :func:`main`).  Returns ({kernel:
+    launches}, {kernel: timing row at the training shape}, {kernel: max
+    |err| on captured inputs})."""
+    from repro_torch.data.synthetic import SyntheticLMIterator
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.aaren_scan import aaren_scan, aaren_scan_plain
+    from repro_torch.kernels.aaren_scan_bwd import (
+        aaren_scan_bwd,
+        aaren_scan_bwd_plain,
+    )
+    from repro_torch.models.factory import build
+    from repro_torch.models.param import count_params
+    from repro_torch.train.loop import LoopConfig, run_train_loop
+    from repro_torch.train.optim import make_optimizer, warmup_cosine
+    from repro_torch.train.state import init_train_state, make_train_step
+
+    _require((cfg.remat, cfg.optimizer) == ("block", "adamw"), str(cfg))
+    api = build(cfg)
+    n_params = count_params(api.specs())
+    steps = TRAIN_WARM + TRAIN_MEASURED
+    ti = time.perf_counter()
+    params = api.init(0, device="cuda")
+    opt = make_optimizer(cfg.optimizer, warmup_cosine(3e-4, 1, steps))
+    state = init_train_state(params, opt)
+    step_fn = make_train_step(api.loss, opt, max_grad_norm=1.0)
+    torch.cuda.synchronize()
+    print(f"  init {time.perf_counter() - ti:.2f} s: params + AdamW moments "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on card")
+    data = SyntheticLMIterator(vocab=cfg.vocab, seq_len=TRAIN_N,
+                               batch=TRAIN_B, seed=0)
+
+    # Capture B1's and B2's inputs at layers 0 and 31 in the first step:
+    # B1 runs forward for layers 0..31, then the remat recompute for 31..0;
+    # B2 runs for layers 31..0.  Cloning launches nothing.
+    last = cfg.n_layers - 1
+    want_calls = {"b1": {0: 0, last: last}, "b2": {last: 0, 0: last}}
+    calls = {"b1": 0, "b2": 0}
+    captured = {"b1": {}, "b2": {}}
+    capturing = {"on": True}
+    real_scan, real_bwd = ops.aaren_scan, ops.aaren_scan_bwd
+
+    def spy(kind, fn):
+        def wrapped(*args, **kw):
+            if capturing["on"]:
+                for layer, idx in want_calls[kind].items():
+                    if calls[kind] == idx:
+                        captured[kind][layer] = [a.clone() for a in args]
+                calls[kind] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    finite = {"ok": True}
+    losses = []
+
+    def on_log(step, m):
+        capturing["on"] = False
+        finite["ok"] &= bool(np.isfinite(m["loss"])
+                             and np.isfinite(m["grad_norm"]))
+        losses.append(m["loss"])
+        print(f"  step {step}: loss {m['loss']:.4f} grad_norm "
+              f"{m['grad_norm']:.4f} {m['step_time_s'] * 1e3:.1f} ms")
+
+    ops.aaren_scan = spy("b1", real_scan)
+    ops.aaren_scan_bwd = spy("b2", real_bwd)
+    torch.cuda.reset_peak_memory_stats()
+    # The main path: counts from zero, read right after.
+    aaren_scan.n_launches = aaren_scan_bwd.n_launches = 0
+    try:
+        result = run_train_loop(step_fn, state, data,
+                                LoopConfig(total_steps=steps, log_every=1),
+                                on_log=on_log)
+    finally:
+        ops.aaren_scan, ops.aaren_scan_bwd = real_scan, real_bwd
+    launches = {"aaren_scan": aaren_scan.n_launches,
+                "aaren_scan_bwd": aaren_scan_bwd.n_launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    _require(finite["ok"], f"non-finite loss or grad norm: {losses}")
+    _require(result.state.step == steps and len(result.history) == steps,
+             f"ran {result.state.step} steps, want {steps}")
+    _require(calls["b1"] == 2 * cfg.n_layers and calls["b2"] == cfg.n_layers,
+             f"first step called B1 {calls['b1']} and B2 {calls['b2']} times")
+    want_b1, want_b2 = 2 * cfg.n_layers * steps, cfg.n_layers * steps
+    _require(launches == {"aaren_scan": want_b1, "aaren_scan_bwd": want_b2},
+             f"launches {launches}, want B1 {want_b1} and B2 {want_b2}")
+    print(f"  launches on the training path over {steps} steps: B1 "
+          f"{launches['aaren_scan']} = 2 x {cfg.n_layers} x {steps}, B2 "
+          f"{launches['aaren_scan_bwd']} = {cfg.n_layers} x {steps}")
+
+    errs = {"aaren_scan": 0.0, "aaren_scan_bwd": 0.0}
+    for layer in (0, last):
+        errs["aaren_scan"] = max(errs["aaren_scan"], _compare_scan_residuals(
+            torch, captured["b1"][layer], f"training step, layer {layer}"))
+        errs["aaren_scan_bwd"] = max(errs["aaren_scan_bwd"], _compare_bwd(
+            torch, captured["b2"][layer], f"training step, layer {layer}"))
+
+    step_s = [m["step_time_s"] for _, m in result.history[TRAIN_WARM:]]
+    step_ms = statistics.median(step_s) * 1e3
+    tokens = TRAIN_B * TRAIN_N
+    mfu = 6 * n_params * tokens / (step_ms / 1e3) / BF16_DENSE_FLOPS
+    each = ", ".join(f"{s * 1e3:.1f}" for s in step_s)
+    print(f"  training B={TRAIN_B} N={TRAIN_N}: step median {step_ms:.3f} ms "
+          f"over {len(step_s)} steps ({each} ms), "
+          f"{tokens / (step_ms / 1e3):.1f} tokens/s  [{card}]")
+    print(f"  peak memory allocated {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated)  [{card}]")
+    print(f"  MFU {mfu:.2%}: 6 x {n_params} params x {tokens} tokens per "
+          f"step over the H100 SXM bf16 dense peak of "
+          f"{BF16_DENSE_FLOPS / 1e12:.0f} TFLOP/s  [{card}]")
+    print(f"  loss {'fell' if losses[-1] < losses[0] else 'did not fall'}: "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (not required at full width)")
+
+    # Where a step's time goes (after the counts were read).
+    train_state = {"state": result.state}
+    batch = next(data)
+
+    def one_step():
+        train_state["state"], _ = step_fn(train_state["state"], batch)
+
+    _print_profile(_device_profile(torch, one_step, 1), "train step", card,
+                   top=16)
+
+    # Both kernels at the training shape, on the captured layer-0 inputs.
+    rows = {}
+    s, v, m0, u0, w0 = captured["b1"][0]
+    r, n = s.shape
+    d = v.shape[-1]
+    times = _kernel_times(
+        torch, lambda: aaren_scan(s, v, m0, u0, w0, return_residuals=True),
+        lambda: aaren_scan_plain(s, v, m0, u0, w0, return_residuals=True),
+        20, 3)
+    rows["aaren_scan"] = times + _b1_bound(r, n, d, residuals=True)
+    serve_form_ms = _graph_ms(torch, lambda: aaren_scan(s, v, m0, u0, w0), 20)
+    print(f"  aaren_scan serving form (no residuals) at the training shape: "
+          f"device {serve_form_ms * 1e3:.2f} us  [{card}]")
+    bwd = captured["b2"][0]
+    times = _kernel_times(torch, lambda: aaren_scan_bwd(*bwd),
+                          lambda: aaren_scan_bwd_plain(*bwd), 20, 3)
+    rows["aaren_scan_bwd"] = times + _b2_bound(r, n, d)
+    out = {}
+    for name, (ms, call_ms, plain_ms, plain_call_ms, bound_ms, bound_by,
+               nbytes) in rows.items():
+        print(f"  {name} at the training shape R={r} N={n} d={d}: device "
+              f"{ms * 1e3:.2f} us (eager call {call_ms * 1e3:.2f} us), plain "
+              f"device {plain_ms * 1e3:.2f} us (eager call "
+              f"{plain_call_ms * 1e3:.2f} us), bound {bound_ms * 1e3:.3f} us "
+              f"by {bound_by} ({nbytes} B), {ms / bound_ms:.1f}x the bound"
+              f"  [{card}]")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "shape": [r, n, d]}
+    return launches, out, errs
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build as kbuild
+
+    t0 = time.perf_counter()
+    # 1. Toolchain and card ------------------------------------------------
+    _phase("1 toolchain and card", t0)
+    card = _card_line()
+    print(f"card: {card}")
+    nvcc = subprocess.run([kbuild._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    triton = ("triton " + importlib.metadata.version("triton")
+              if importlib.util.find_spec("triton") else "no triton")
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"torch.version.cuda {torch.version.cuda}, nvcc: {nvcc[-1]}, "
+          f"{triton}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+          f"cudnn {torch.backends.cudnn.allow_tf32}")
+
+    # 2. Build ---------------------------------------------------------------
+    _phase("2 build", t0)
+    tb = time.perf_counter()
+    logs = kbuild.build(kbuild.KERNELS)
+    for name in kbuild.KERNELS:
+        kbuild.load(name)
+        print(f"  built {kbuild.library_path(name).name}")
+        for line in logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {line.strip()}")
+    print(f"build seconds: {time.perf_counter() - tb:.2f}")
+
+    # 3. Kernels against their plain versions --------------------------------
+    _phase("3 kernels against plain versions", t0)
+    b1_err, b2_err = phase3_kernels(torch, np)
+    phase3_small_model(torch, np)
+
+    # 4. Full-width serving ------------------------------------------------
+    _phase("4 full-width serving", t0)
+    cfg = get_config(ARCH)
+    _require((cfg.attn_mode, cfg.param_dtype, cfg.compute_dtype,
+              cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.resolved_head_dim,
+              cfg.d_ff, cfg.vocab) == ("aaren", "bfloat16", "bfloat16", 32,
+                                       3072, 32, 96, 8192, 32064), str(cfg))
+    serve_launches, b1_serve, err = phase4_serving(torch, np, card)
+    b1_err = max(b1_err, err)
+    gc.collect()               # the serving model went with its frame
+    torch.cuda.empty_cache()
+
+    # 4b. Full-width training ----------------------------------------------
+    _phase("4b full-width training", t0)
+    train_launches, train_rows, errs = phase4b_training(torch, np, card,
+                                                        cfg)
+    b1_err = max(b1_err, errs["aaren_scan"])
+    b2_err = max(b2_err, errs["aaren_scan_bwd"])
 
     # 5. Results ---------------------------------------------------------------
     _phase("5 results", t0)
-    print(json.dumps({"kernels": [{
-        "name": "aaren_scan", "route": "cuda",
-        "source": "src/repro_torch/csrc/aaren_scan.cu",
-        "replaces": "src/repro/kernels/aaren_scan.py:190",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}))
+    kernels = [
+        {"name": "aaren_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/aaren_scan.cu",
+         "replaces": "src/repro/kernels/aaren_scan.py:190",
+         "launches": serve_launches + train_launches["aaren_scan"],
+         "launches_by_path": {"serve": serve_launches,
+                              "train": train_launches["aaren_scan"]},
+         "max_abs_err": b1_err, **b1_serve, "library_ms": None,
+         "shape": "serving tick; 'train' holds the residual form at the "
+                  "training shape",
+         "train": train_rows["aaren_scan"]},
+        {"name": "aaren_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/aaren_scan_bwd.cu",
+         "replaces": "src/repro/kernels/aaren_scan_bwd.py:183",
+         "launches": train_launches["aaren_scan_bwd"],
+         "launches_by_path": {"serve": 0,
+                              "train": train_launches["aaren_scan_bwd"]},
+         "max_abs_err": b2_err, **train_rows["aaren_scan_bwd"],
+         "library_ms": None},
+    ]
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -107,17 +107,16 @@ def _shifted(x: torch.Tensor, off: int, fill: float, dim: int) -> torch.Tensor:
     return torch.cat([pad, x.narrow(dim, 0, x.shape[dim] - off)], dim=dim)
 
 
-def prefix_scan_states(s: torch.Tensor, v: torch.Tensor) -> ScanState:
-    """All-prefix states ``{(m_k, u_k, w_k)}_{k=1..N}`` in f32.
+def prefix_scan(leaves: ScanState) -> ScanState:
+    """All-prefix ⊕ states of a row of leaf states, in their dtype.
 
-    s: (..., N) scores, v: (..., N, d) values -> ScanState with m,u (..., N)
-    and w (..., N, d).  A log-step Hillis–Steele scan (the paper's
-    Algorithm 1): at step ``off`` every position folds in the state ``off``
-    places to its left, with the ⊕ identity shifted in at the edge.
+    ``leaves``: m,u (..., N), w (..., N, d).  A log-step Hillis–Steele scan
+    (the paper's Algorithm 1): at step ``off`` every position folds in the
+    state ``off`` places to its left, with the ⊕ identity shifted in at the
+    edge.  Returns m,u (..., N) and w (..., N, d).
     """
-    leaf = make_leaf_state(s.float(), v.float())
-    m, u, w = leaf.m[..., None], leaf.u[..., None], leaf.w
-    n = s.shape[-1]
+    m, u, w = leaves.m[..., None], leaves.u[..., None], leaves.w
+    n = m.shape[-2]
     off = 1
     while off < n:
         older = ScanState(m=_shifted(m, off, NEG_INF, -2),
@@ -126,3 +125,12 @@ def prefix_scan_states(s: torch.Tensor, v: torch.Tensor) -> ScanState:
         m, u, w = combine(older, ScanState(m=m, u=u, w=w))
         off *= 2
     return ScanState(m=m[..., 0], u=u[..., 0], w=w)
+
+
+def prefix_scan_states(s: torch.Tensor, v: torch.Tensor) -> ScanState:
+    """All-prefix states ``{(m_k, u_k, w_k)}_{k=1..N}`` in f32.
+
+    s: (..., N) scores, v: (..., N, d) values -> ScanState with m,u (..., N)
+    and w (..., N, d): :func:`prefix_scan` of the leaves ``(s_i, 1, v_i)``.
+    """
+    return prefix_scan(make_leaf_state(s.float(), v.float()))

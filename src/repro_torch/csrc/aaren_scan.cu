@@ -3,11 +3,14 @@
 // Replaces the Pallas TPU kernel `aaren_scan` in
 // src/repro/kernels/aaren_scan.py (wrapper at :190, pallas_call at :275,
 // body `_aaren_scan_kernel`, within-block `_block_prefix_scan`).  Its
-// non-segmented, carry-in, no-residual form: for every row r of R
+// non-segmented, carry-in form: for every row r of R
 //
 //   o_i = sum_{j<=i} exp(s_j - m_i) v_j / sum_{j<=i} exp(s_j - m_i)
 //
 // with the carry (m0, u0, w0) folded in before token 0, plus the final carry.
+// With `return_residuals` (non-null m_all, u_all) it also writes the running
+// max and denominator (m_i, u_i) after every token, which the backward
+// kernel (aaren_scan_bwd.cu) reads instead of re-running the scan.
 //
 // Design.  The Pallas kernel runs a sequential grid over N with the carry in
 // VMEM scratch and a Hillis-Steele scan inside each 256-token block.  Hopper
@@ -26,13 +29,18 @@
 // keeps the kernel within 1e-4 of the f32 oracle.
 //
 // Bound.  The kernel reads s, v and the carry once and writes o and the
-// final carry once: 4*R*N*(2d+1) + 8*R*(d+2) bytes.  At the serving tick of
+// final carry once: 4*R*N*(2d+1) + 8*R*(d+2) bytes, plus 8*R*N with the
+// residuals.  At the serving tick of
 // phi3-mini-3.8b (R = 8 slots * 32 heads = 256, N = 16, d = 96) that is
 // 3.36 MB, about 1 us at 3.35 TB/s; the arithmetic is ~5*R*N*d flops, far
 // below the f32 rate.  A launch costs more than that at serving shapes.
 // Loads are coalesced across the lanes of a warp (v_i is d contiguous
-// floats); tiling over N, 16-byte vector loads and fusing the score product
-// and the (S, C, H, d) transposes are later work.
+// floats).  The residuals are staged one token per lane and written 32 at a
+// time, so their stores are coalesced too.  Tiling over N, 16-byte vector
+// loads and fusing the score product and the (S, C, H, d) transposes are
+// later work.  At the training shape of phi3-mini-3.8b (R = 4 * 32 = 128,
+// N = 1024, d = 96) the bound is 4*R*N*(2d+3) = 102 MB, about 30 us; the
+// kernel walks 1024 dependent token steps per warp, so it is latency-bound.
 
 #include <cuda_runtime.h>
 
@@ -44,7 +52,8 @@ __global__ void aaren_scan_fwd_kernel(
     const float* __restrict__ m0, const float* __restrict__ u0,
     const float* __restrict__ w0, float* __restrict__ o,
     float* __restrict__ m_f, float* __restrict__ u_f,
-    float* __restrict__ w_f, int R, int N, int d) {
+    float* __restrict__ w_f, float* __restrict__ m_all,
+    float* __restrict__ u_all, int R, int N, int d) {
   const int lane = threadIdx.x & 31;
   const long long r =
       (long long)blockIdx.x * AAREN_ROWS_PER_BLOCK + (threadIdx.x >> 5);
@@ -62,6 +71,7 @@ __global__ void aaren_scan_fwd_kernel(
   const float* s_row = s + r * N;
   const float* v_row = v + r * (long long)N * d;
   float* o_row = o + r * (long long)N * d;
+  float m_keep = 0.f, u_keep = 0.f;  // residuals of token (i & ~31) + lane
   for (int i = 0; i < N; ++i) {
     const float si = s_row[i];
     const float mn = fmaxf(m, si);
@@ -78,6 +88,19 @@ __global__ void aaren_scan_fwd_kernel(
       }
     }
     m = mn;
+    if (m_all != nullptr) {
+      if ((i & 31) == lane) {
+        m_keep = m;
+        u_keep = u;
+      }
+      if ((i & 31) == 31 || i == N - 1) {
+        const int t = (i & ~31) + lane;
+        if (t <= i) {
+          m_all[r * N + t] = m_keep;
+          u_all[r * N + t] = u_keep;
+        }
+      }
+    }
   }
 
   if (lane == 0) {
@@ -96,17 +119,21 @@ extern "C" {
 int aaren_scan_max_d() { return 32 * AAREN_MAX_PER_LANE; }
 
 // Launches on `stream`; does not synchronise and allocates nothing.
+// `m_all` and `u_all` are both null (serving: no residuals) or both (R, N).
 // Returns cudaGetLastError() after the launch (0 on success).
 int aaren_scan_fwd(const float* s, const float* v, const float* m0,
                    const float* u0, const float* w0, float* o, float* m_f,
-                   float* u_f, float* w_f, int R, int N, int d,
-                   void* stream) {
+                   float* u_f, float* w_f, float* m_all, float* u_all, int R,
+                   int N, int d, void* stream) {
   if (R <= 0 || N <= 0 || d <= 0 || d > 32 * AAREN_MAX_PER_LANE)
+    return (int)cudaErrorInvalidValue;
+  if ((m_all == nullptr) != (u_all == nullptr))
     return (int)cudaErrorInvalidValue;
   const int blocks = (R + AAREN_ROWS_PER_BLOCK - 1) / AAREN_ROWS_PER_BLOCK;
   aaren_scan_fwd_kernel<<<blocks, 32 * AAREN_ROWS_PER_BLOCK, 0,
                           (cudaStream_t)stream>>>(s, v, m0, u0, w0, o, m_f,
-                                                  u_f, w_f, R, N, d);
+                                                  u_f, w_f, m_all, u_all,
+                                                  R, N, d);
   return (int)cudaGetLastError();
 }
 

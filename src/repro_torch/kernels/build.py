@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("aaren_scan",)
+KERNELS = ("aaren_scan", "aaren_scan_bwd")
 
 
 def _nvcc() -> str:

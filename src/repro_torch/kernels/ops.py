@@ -1,9 +1,17 @@
 """The kernel boundary of the Aaren mixer: ``aaren_prefix_attention``.
 
-Port of the forward of ``repro.kernels.ops.aaren_prefix_attention``.  Every
-Aaren prefill, chunk and sequence pass reaches the prefix-scan kernel
-through here.  Dispatch is by device, inside ``kernels/aaren_scan.py``: a
-CPU tensor takes the plain torch version, a CUDA tensor the CUDA kernel.
+Port of ``repro.kernels.ops.aaren_prefix_attention`` and its custom VJP.
+Every Aaren prefill, chunk, decode and training pass reaches the prefix-scan
+kernels through here.  Dispatch is by device, inside the kernel wrappers: a
+CPU tensor takes the plain torch versions, a CUDA tensor the CUDA kernels.
+
+Gradients go through one ``torch.autograd.Function`` for both devices, with
+the JAX package's residual contract: the forward runs the scan with
+``return_residuals`` and saves ``(s, v, o, m, u)`` plus the final and
+incoming carries; the backward runs the reverse scan ``aaren_scan_bwd``
+seeded with ``(-m_f, g_{w_f}, -g_{u_f})`` and finishes with
+:func:`aaren_bwd_epilogue`.  A call that needs no gradient (serving) runs
+the scan without residuals.
 """
 
 from __future__ import annotations
@@ -14,6 +22,64 @@ import torch
 
 from repro_torch.core.scan_attention import NEG_INF, ScanState
 from repro_torch.kernels.aaren_scan import aaren_scan
+from repro_torch.kernels.aaren_scan_bwd import aaren_scan_bwd
+
+
+def aaren_bwd_epilogue(s, m0, u0, w0, m_f, u_f, w_f, g_m, g_u, g_w,
+                       ds, n1, g1, b1, hit_mask=None):
+    """Elementwise epilogue of the fused Aaren backward.
+
+    Turns the reverse scan's final state ``(n1, g1, b1)`` into the
+    incoming-carry cotangents and adds the max-subgradient of the ``m_f``
+    output to ``ds``, split across exact ties the way autodiff's
+    balanced-eq rule does.  ``hit_mask`` (segmented scans only) restricts
+    the tie detector to the last segment — the span ``m_f`` is the max of.
+    A line-for-line port of the JAX package's epilogue; plain torch on both
+    devices.  Returns (ds, dm0, du0, dw0).
+    """
+    e01 = torch.exp(m0 + n1)                     # exp(m0 - M_N-ish), <= 1
+    dw0 = e01 * g1
+    du0 = -e01 * b1
+    c = g_m - g_u * u_f - (g_w * w_f).sum(dim=-1, keepdim=True)
+    hit_s = (s == m_f).to(s.dtype)
+    if hit_mask is not None:
+        hit_s = hit_s * hit_mask
+    hit_0 = (m0 == m_f).to(s.dtype)
+    cnt = hit_s.sum(dim=-1, keepdim=True) + hit_0
+    c = c / torch.clamp(cnt, min=1.0)
+    ds = ds + c * hit_s
+    dm0 = u0 * du0 + (w0 * dw0).sum(dim=-1, keepdim=True) + c * hit_0
+    return ds, dm0, du0, dw0
+
+
+class AarenScan(torch.autograd.Function):
+    """(s, v, m0, u0, w0) -> (o, m_f, u_f, w_f) with the analytic backward.
+
+    All inputs f32 and contiguous, shapes as :func:`aaren_scan`.  Unused
+    outputs arrive in the backward as zeros (``materialize_grads``), so the
+    seed is then ``(-m_f, 0, 0)``.
+    """
+
+    @staticmethod
+    def forward(ctx, s, v, m0, u0, w0):
+        o, m_f, u_f, w_f, m_all, u_all = aaren_scan(
+            s, v, m0, u0, w0, return_residuals=True)
+        ctx.save_for_backward(s, v, o, m_all, u_all, m_f, u_f, w_f, m0, u0,
+                              w0)
+        return o, m_f, u_f, w_f
+
+    @staticmethod
+    def backward(ctx, g_o, g_m, g_u, g_w):
+        s, v, o, m_all, u_all, m_f, u_f, w_f, m0, u0, w0 = ctx.saved_tensors
+        g_u = g_u.contiguous()
+        g_w = g_w.contiguous()
+        # (u_f, w_f) cotangents seed the reverse carry (a suffix "past" token
+        # N); see kernels/aaren_scan_bwd.py.
+        ds, dv, n1, g1, b1 = aaren_scan_bwd(
+            s, v, o, m_all, u_all, g_o.contiguous(), -m_f, g_w, -g_u)
+        ds, dm0, du0, dw0 = aaren_bwd_epilogue(
+            s, m0, u0, w0, m_f, u_f, w_f, g_m, g_u, g_w, ds, n1, g1, b1)
+        return ds, dv, dm0, du0, dw0
 
 
 def aaren_prefix_attention(s, v, carry: ScanState | None = None, *,
@@ -22,18 +88,12 @@ def aaren_prefix_attention(s, v, carry: ScanState | None = None, *,
 
     s: (..., N) scores; v: (..., N, d) values; carry leaves: m,u (...,),
     w (..., d).  Returns (o: (..., N, d) in v's dtype, final carry
-    ScanState in f32).
+    ScanState in f32).  Differentiable in s, v and the carry.
     """
     if segment_ids is not None or segment_starts is not None:
         raise NotImplementedError(
             "packed sequences (segment_ids/segment_starts) come with the "
-            "packing slice of the port")
-    tensors = (s, v) + (tuple(carry) if carry is not None else ())
-    if (s.device.type == "cuda" and torch.is_grad_enabled()
-            and any(t.requires_grad for t in tensors)):
-        raise NotImplementedError(
-            "gradients through the CUDA prefix scan need its backward kernel "
-            "and torch.autograd.Function, which come with the training slice")
+            "packing slice of the port (ROADMAP queue A item 7)")
     batch_shape = tuple(s.shape[:-1])
     n = s.shape[-1]
     d = v.shape[-1]
@@ -48,7 +108,11 @@ def aaren_prefix_attention(s, v, carry: ScanState | None = None, *,
         m0 = carry.m.reshape(r, 1).float().contiguous()
         u0 = carry.u.reshape(r, 1).float().contiguous()
         w0 = carry.w.reshape(r, d).float().contiguous()
-    o, m_f, u_f, w_f = aaren_scan(s2, v2, m0, u0, w0)
+    args = (s2, v2, m0, u0, w0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        o, m_f, u_f, w_f = AarenScan.apply(*args)
+    else:
+        o, m_f, u_f, w_f = aaren_scan(*args)
     final = ScanState(m=m_f.reshape(batch_shape), u=u_f.reshape(batch_shape),
                       w=w_f.reshape(batch_shape + (d,)))
     return o.reshape(batch_shape + (n, d)).to(v.dtype), final

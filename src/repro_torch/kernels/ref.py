@@ -1,6 +1,7 @@
-"""Dense oracle for the Aaren prefix scan — the port of
-``repro.kernels.ref.aaren_scan_reference``, written with the simplest
-correct torch (no scan tricks) so it doubles as the readable spec."""
+"""Dense oracles for the Aaren prefix scan and its VJP — the port of
+``repro.kernels.ref.aaren_scan_reference`` and ``aaren_scan_vjp_reference``,
+written with the simplest correct torch (no scan tricks) so they double as
+the readable spec.  Only the tests use them."""
 
 from __future__ import annotations
 
@@ -40,3 +41,61 @@ def aaren_scan_reference(s, v, m0=None, u0=None, w0=None):
         w0[:, None, :] / u0_safe[..., None])
     o = w / u[..., None]
     return o, m_pref[:, -1:], u[:, -1:], w[:, -1, :]
+
+
+def aaren_scan_vjp_reference(s, v, m0, u0, w0, g_o, g_m, g_u, g_w):
+    """Analytic cotangents of :func:`aaren_scan_reference`, densely.
+
+    Direct O(N^2) evaluation of the formulas the fused backward kernel
+    implements as a suffix scan: with prefix max/denominator residuals
+    ``(M_i, U_i)`` and ``p_ij = exp(s_j - M_i)/U_i``,
+
+        ds_j  = Σ_{i>=j} p_ij (g_i · (v_j - o_i))  +  seed + max terms
+        dv_j  = Σ_{i>=j} p_ij g_i                  +  seed term
+
+    Seed terms carry the (u_f, w_f) cotangents; the ``max`` subgradient of
+    ``m_f`` routes ``C = g_m - g_u u_f - g_w·w_f`` to the arg-max score.
+    Returns (ds, dv, dm0, du0, dw0).
+    """
+    r, n = s.shape
+    s, v = s.float(), v.float()
+    m0, u0, w0 = m0.float(), u0.float(), w0.float()
+    g_o, g_m, g_u, g_w = (g.float() for g in (g_o, g_m, g_u, g_w))
+    dev = s.device
+
+    mask = torch.tril(torch.ones((n, n), dtype=torch.bool, device=dev))
+    m_pref = torch.maximum(torch.cummax(s, dim=1).values, m0)   # (R, N) = M_i
+    e = torch.where(mask[None], torch.exp(s[:, None, :] - m_pref[..., None]),
+                    torch.zeros((), device=dev))
+    e0 = torch.exp(m0 - m_pref)                                 # (R, N): carry
+    u = e.sum(dim=-1) + e0 * u0                                 # (R, N) = U_i
+    p = e / u[..., None]                                        # (R, N, N)
+    u0_safe = torch.where(u0 == 0.0, torch.ones_like(u0), u0)
+    o = (torch.einsum("rij,rjd->rid", p, v)
+         + (e0 * u0 / u)[..., None] * (w0[:, None, :] / u0_safe[..., None]))
+    m_f, u_f = m_pref[:, -1:], u[:, -1:]
+
+    gdotv = torch.einsum("rid,rjd->rij", g_o, v)                # g_i · v_j
+    gdoto = (g_o * o).sum(dim=-1)                               # g_i · o_i
+    e_n = torch.exp(s - m_f)                                  # exp(s_j - M_N)
+    ds = torch.einsum("rij->rj", p * (gdotv - gdoto[..., None]))
+    ds = ds + e_n * (torch.einsum("rjd,rd->rj", v, g_w) + g_u)
+    dv = (torch.einsum("rij,rid->rjd", p, g_o)
+          + e_n[..., None] * g_w[:, None, :])
+
+    # Incoming-carry cotangents.
+    q0 = e0 / u                                                 # (R, N)
+    dw0 = torch.einsum("ri,rid->rd", q0, g_o) + torch.exp(m0 - m_f) * g_w
+    du0 = (-(q0 * gdoto).sum(dim=-1, keepdim=True)
+           + torch.exp(m0 - m_f) * g_u)
+    # max subgradient of m_f, split across exact ties like autodiff.
+    w_f = (torch.einsum("rj,rjd->rd", e[:, -1, :], v)
+           + (e0[:, -1:] * u0) * (w0 / u0_safe))
+    c = g_m - g_u * u_f - (g_w * w_f).sum(dim=-1, keepdim=True)
+    hit_s = (s == m_f).float()
+    hit_0 = (m0 == m_f).float()
+    cnt = hit_s.sum(dim=-1, keepdim=True) + hit_0
+    c = c / torch.clamp(cnt, min=1.0)
+    ds = ds + c * hit_s
+    dm0 = u0 * du0 + (w0 * dw0).sum(dim=-1, keepdim=True) + c * hit_0
+    return ds, dv, dm0, du0, dw0

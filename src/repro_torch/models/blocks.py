@@ -22,6 +22,9 @@ from repro_torch.models.layers import (
 
 Sig = tuple[str, str]
 SUPPORTED_MLPS = ("swiglu", "gelu")
+# Auxiliary metrics of a dense block (the MoE router's, which a dense model
+# reports as 0), as in the JAX package.
+ZERO_AUX = {"load_balance_loss": 0.0, "dropped_frac": 0.0}
 
 
 def check_sig(sig: Sig) -> None:

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.scan_attention import ScanState
+from repro_torch.tree import tree_map
 
 
 def _to_torch(a, device) -> torch.Tensor:
@@ -26,14 +27,6 @@ def _to_torch(a, device) -> torch.Tensor:
         return torch.from_numpy(a.view(np.int16).copy()).view(
             torch.bfloat16).to(device)
     return torch.from_numpy(a.copy()).to(device)
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
 
 
 def params_from_jax(np_tree: dict, cfg: ArchConfig, device) -> dict:
@@ -45,21 +38,21 @@ def params_from_jax(np_tree: dict, cfg: ArchConfig, device) -> dict:
     n_periods, n_rest = cfg.layer_plan()
     period = len(cfg.pattern)
     layers = []
+
+    def to_torch(a):
+        return _to_torch(a, device)
+
     for i in range(n_periods):
         for pos in range(period):
-            layers.append(_map(lambda a, i=i: _to_torch(np.asarray(a)[i],
-                                                        device),
-                               np_tree["periods"][pos]))
+            layers.append(tree_map(lambda a, i=i: to_torch(np.asarray(a)[i]),
+                                   np_tree["periods"][pos]))
     for r in range(n_rest):
-        layers.append(_map(lambda a: _to_torch(a, device),
-                           np_tree["rest"][r]))
-    out = {"embed": _map(lambda a: _to_torch(a, device), np_tree["embed"]),
-           "final_norm": _map(lambda a: _to_torch(a, device),
-                              np_tree["final_norm"]),
+        layers.append(tree_map(to_torch, np_tree["rest"][r]))
+    out = {"embed": tree_map(to_torch, np_tree["embed"]),
+           "final_norm": tree_map(to_torch, np_tree["final_norm"]),
            "layers": layers}
     if "unembed" in np_tree:
-        out["unembed"] = _map(lambda a: _to_torch(a, device),
-                              np_tree["unembed"])
+        out["unembed"] = tree_map(to_torch, np_tree["unembed"])
     return out
 
 

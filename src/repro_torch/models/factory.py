@@ -1,8 +1,8 @@
 """Model factory: the LM's uniform API — port of ``repro.models.factory``.
 
 ``build(cfg)`` returns a :class:`ModelAPI` whose members are plain functions
-closed over the config; the serving engine and the launcher consume this
-interface.  Loss and training come with the training slice.
+closed over the config; the serving engine, the train step and the
+launchers consume this interface.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ class ModelAPI:
     cfg: ArchConfig
     specs: Callable[[], Any]
     init: Callable[..., Any]              # (seed, device="cuda") -> params
+    loss: Callable[..., tuple]            # (params, batch) -> (loss, metrics)
     forward: Callable[..., Any]           # (params, batch) -> logits
     prefill: Callable[..., tuple]         # (params, batch) -> (logits, states)
     decode_step: Callable[..., tuple]     # (params, step_batch) -> (logits, states)
@@ -38,6 +39,9 @@ def build(cfg: ArchConfig) -> ModelAPI:
         return init_params(specs_fn(), seed, getattr(torch, cfg.param_dtype),
                            resolve_device(device))
 
+    def loss(params, batch):
+        return lm.lm_loss(cfg, params, batch)
+
     def forward(params, batch):
         logits, _ = lm.lm_apply(cfg, params, batch["tokens"])
         return logits
@@ -51,5 +55,5 @@ def build(cfg: ArchConfig) -> ModelAPI:
         return lm.lm_decode_step(cfg, params, step_batch["token"],
                                  step_batch["states"])
 
-    return ModelAPI(cfg=cfg, specs=specs_fn, init=init, forward=forward,
-                    prefill=prefill, decode_step=decode_step)
+    return ModelAPI(cfg=cfg, specs=specs_fn, init=init, loss=loss,
+                    forward=forward, prefill=prefill, decode_step=decode_step)

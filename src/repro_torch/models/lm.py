@@ -11,6 +11,7 @@ leaf.
 Entry points, as in the JAX package:
 
 * :func:`lm_apply`         — tokens -> logits (+ per-layer final carries);
+* :func:`lm_loss`          — next-token cross-entropy, the training loss;
 * :func:`lm_decode_step`   — one token through every layer's carry;
 * :func:`lm_prefill_chunk` — advance every carry by one fixed-shape chunk
   (the serving hot path);
@@ -21,6 +22,7 @@ Entry points, as in the JAX package:
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.scan_attention import ScanState
@@ -68,13 +70,56 @@ def lm_apply(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     ``lengths`` (B,): true lengths of right-padded ragged rows — each row's
     padded tail is masked in the scan, so the collected states are exactly
     the states at each row's true length (ragged prefill).
+
+    ``cfg.remat == "block"`` checkpoints every layer of the full periods
+    (``torch.utils.checkpoint``, non-reentrant), as the JAX package wraps
+    each scanned period in ``jax.checkpoint``: the backward keeps only each
+    block's input and runs the block's forward again.
     """
+    if cfg.remat not in ("none", "block"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r}: the port checkpoints 'none' or 'block'")
+    n_periods, _ = cfg.layer_plan()
+    n_remat = n_periods * len(cfg.pattern) if cfg.remat == "block" else 0
     x = apply_embed(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
     states = []
-    for p, sig in zip(params["layers"], layer_sigs(cfg)):
-        x, st = blocks.block_sequence(p, x, sig, cfg, lengths=lengths)
+    for i, (p, sig) in enumerate(zip(params["layers"], layer_sigs(cfg))):
+        if i < n_remat and torch.is_grad_enabled():
+            x, st = checkpoint(blocks.block_sequence, p, x, sig, cfg,
+                               lengths=lengths, use_reentrant=False)
+        else:
+            x, st = blocks.block_sequence(p, x, sig, cfg, lengths=lengths)
         states.append(st)
     return _logits(cfg, params, x), (states if collect_state else None)
+
+
+def lm_loss(cfg: ArchConfig, params: dict, batch: dict):
+    """Next-token CE loss.  batch: {"tokens": (B, N), "loss_mask": (B, N)?}.
+
+    Returns (loss, metrics): the masked mean of ``-log p(token_{t+1})`` in
+    f32, and ``{"loss", "ce"}`` plus the zero auxiliary metrics of a dense
+    model (``blocks.ZERO_AUX``), all detached.  Packed batches
+    (``segment_ids``, ``positions``) and VLM ``prefix_embeds`` raise until
+    their slices of the port land.
+    """
+    for key, item in (("segment_ids", 7), ("positions", 7),
+                      ("prefix_embeds", 10)):
+        if batch.get(key) is not None:
+            raise NotImplementedError(
+                f"lm_loss: batch[{key!r}] comes with a later slice of the "
+                f"port (ROADMAP queue A item {item})")
+    tokens = batch["tokens"]
+    logits, _ = lm_apply(cfg, params, tokens)
+    targets = tokens[:, 1:].long()
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = (torch.ones_like(nll) if mask is None
+            else mask[:, 1:].to(nll.dtype))
+    ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    aux = {k: torch.full((), v, device=ce.device)
+           for k, v in blocks.ZERO_AUX.items()}
+    return ce, {"loss": ce.detach(), "ce": ce.detach(), **aux}
 
 
 def lm_decode_step(cfg: ArchConfig, params: dict, token_t: torch.Tensor,
