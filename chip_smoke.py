@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card and
-check them.
+"""Drive the PyTorch port's serving and training paths — Aaren and the
+softmax baseline — on one CUDA card and check them.
 
 Run from the root of the repository, on a machine with one NVIDIA H100:
 
@@ -18,7 +18,11 @@ own error):
    serving tick at the first and last layer, a small f32 model served on the
    card (kernels) and on the CPU (plain versions) with identical greedy
    tokens, and the same model's loss, every parameter gradient and three
-   train steps on the card against the CPU.
+   train steps on the card against the CPU.  B3, B4 and B5 on edge shapes
+   (N = 1, odd N, N = 1000, ragged lengths with 0 and all-empty rows,
+   window, GQA, d from 32 to 256, f32 and bf16), and a small f32 softmax
+   model's greedy tokens (plain and ragged prompts), loss, gradients and
+   three train steps on the card against the CPU.
 4. Full-width serving: ``phi3-mini-3.8b`` as registered (bf16, 32 layers,
    d_model 3072, 32 x 96 heads), random weights from a seed, 16 requests
    through the ``StreamingEngine`` (8 slots, chunk 16, prompts of 32-256
@@ -36,6 +40,17 @@ own error):
    at layers 0 and 31 are captured in the first step and held against the
    plain versions.  Then step time, tokens/s, peak memory, MFU, a profiler
    view of one step and both kernels' device time at the training shape.
+4c. Full-width softmax training: the same model, load and loop with
+   ``attn_mode="softmax"`` (RoPE, flash attention): counts zeroed just
+   before and read just after (B3 64, B4 32 and B5 32 launches a step);
+   layer 0's flash inputs captured in the first step and held against the
+   plain versions; step time, tokens/s, peak memory, MFU, a profiler view,
+   and B3, B4, B5 at that shape (replayed CUDA graph, eager call, plain
+   version, bound, and ``scaled_dot_product_attention`` as the yardstick —
+   the port never calls it).
+4d. Full-width softmax serving: ``generate`` with a KV cache (B = 4,
+   P = 128, 8 new tokens, cache_len 136), counts zeroed just before and
+   read just after (32 B3 launches for the prefill; decode is plain torch).
 5. Result lines: the kernels' JSON, the card, and the contract line.
 """
 
@@ -261,6 +276,9 @@ def _device_profile(torch, fn, n: int):
 KERNEL_GROUPS = (
     ("B1 aaren_scan_fwd_kernel", ("aaren_scan_fwd",)),
     ("B2 aaren_scan_bwd_kernel", ("aaren_scan_bwd",)),
+    ("B3 flash_fwd_kernel", ("flash_fwd_kernel",)),
+    ("B4 flash_bwd_dq_kernel", ("flash_bwd_dq_kernel",)),
+    ("B5 flash_bwd_dkv_kernel", ("flash_bwd_dkv_kernel",)),
     ("GEMM/GEMV (bf16 and f32)", ("gemm", "gemv", "nvjet", "xmma", "sgemm")),
     ("reductions (norms, sums, log-softmax)", ("reduce", "softmax", "norm")),
     ("elementwise and copies (casts, AdamW, scaling)",
@@ -293,9 +311,9 @@ def _print_profile(prof, what: str, card: str, top: int = 10) -> None:
         print(f"    {ms:9.3f} ms  {key[:100]}")
 
 
-def _bound(nbytes: float, nops: float):
+def _bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / F32_OPS_PER_S * 1e3
+    ops_ms = nops / ops_per_s * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
@@ -357,6 +375,235 @@ def phase3_kernels(torch, np) -> tuple[float, float]:
                           zero_u=label.startswith("u == 0"))
         b2_err = max(b2_err, _compare_bwd(torch, bwd, label))
     return b1_err, b2_err
+
+
+# label, (B, H, G, N, d), dtype, causal, window, per-row lengths (q and kv)
+FLASH_CASES = [
+    ("N = 1", (1, 2, 2, 1, 32), "float32", True, None, None),
+    ("odd N, ragged lengths incl. 0", (3, 4, 4, 97, 96), "float32", True,
+     None, (0, 50, 97)),
+    ("all-empty rows", (2, 2, 2, 64, 32), "float32", True, None, (0, 0)),
+    ("oversized lengths clamped", (2, 2, 2, 37, 32), "float32", True, None,
+     (500, 37)),
+    ("window 48, ragged", (2, 4, 4, 255, 96), "float32", True, 48, (200, 255)),
+    ("non-causal, ragged", (2, 4, 4, 97, 32), "float32", False, None,
+     (97, 40)),
+    ("N = 1000, GQA 4:2, ragged", (2, 4, 2, 1000, 96), "float32", True, None,
+     (1000, 613)),
+    ("GQA 8:1, window 64", (1, 8, 1, 300, 32), "float32", True, 64, None),
+    ("d = 40, odd N", (2, 2, 2, 71, 40), "float32", True, None, (71, 9)),
+    ("d = 130, window 16", (1, 2, 1, 150, 130), "float32", True, 16, None),
+    ("d = 256, ragged, GQA 2:1", (2, 2, 1, 257, 256), "float32", True, None,
+     (257, 130)),
+    ("d = 256, window 64", (1, 4, 2, 300, 256), "float32", True, 64, None),
+    ("bf16, GQA 8:2, ragged", (2, 8, 2, 333, 96), "bfloat16", True, None,
+     (333, 100)),
+    ("bf16, d = 256, window 32", (1, 2, 2, 129, 256), "bfloat16", True, 32,
+     None),
+    ("bf16, N = 1, an empty row", (2, 2, 2, 1, 32), "bfloat16", True, None,
+     (1, 0)),
+]
+# The CPU parity bars of tests/test_torch_flash.py: forward rtol = atol (f32
+# 2e-5, bf16 2e-2); gradients |kernel - plain| <= rtol * max |plain| + 1e-6.
+FLASH_FWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+FLASH_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _flash_inputs(torch, np, b, h, g, n, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    shapes = ((b, h, n, d), (b, g, n, d), (b, g, n, d), (b, h, n, d))
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .cuda().to(getattr(torch, dtype)) for s in shapes]
+
+
+def _grad_close(a, b, rtol, what):
+    """|a - b| <= rtol * max|b| + 1e-6 (the 1e-6 floor is the f32 noise of a
+    dense reference where the true gradient is 0)."""
+    a, b = a.float(), b.float()
+    _require(bool(a.isfinite().all()), f"{what}: kernel output not finite")
+    err = (a - b).abs().max().item()
+    bar = rtol * b.abs().max().item() + 1e-6
+    _require(err <= bar, f"{what}: max |kernel - plain| {err:.3e} > {bar:.3e}")
+    return err
+
+
+def _check_flash(torch, q, k, v, do, lens, causal, window, label):
+    """B3, B4 and B5 against their plain versions on the same tensors.
+    Returns the max |kernel - plain| of each, keyed by wrapper name."""
+    import math
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dtype = str(q.dtype).split(".")[-1]
+    b, h, n_q, d = q.shape
+    n_k = k.shape[2]
+    ql = fa._lens(lens, b, n_q, q.device)
+    kl = fa._lens(lens, b, n_k, q.device)
+    kw = dict(causal=causal, window=window, scale=1.0 / math.sqrt(d))
+    o, lse = fa.flash_attention(q, k, v, q_lens=lens, kv_lens=lens,
+                                return_residuals=True, **kw)
+    o_p, lse_p = fa.flash_attention_plain(q, k, v, ql, kl, **kw)
+    torch.cuda.synchronize()
+    tol = FLASH_FWD_TOL[dtype]
+    _require(bool(o.float().isfinite().all()), f"{label}: o not finite")
+    torch.testing.assert_close(o.float(), o_p.float(), rtol=tol, atol=tol,
+                               msg=lambda m: f"{label} o: {m}")
+    torch.testing.assert_close(lse, lse_p, rtol=2e-5, atol=2e-5,
+                               msg=lambda m: f"{label} lse: {m}")
+    dead = torch.arange(n_q, device=q.device)[None, :] >= ql[:, None]
+    _require(bool((o.float()[dead[:, None].expand(b, h, n_q)] == 0).all()
+                  and (lse[dead[:, None].expand(b, h, n_q)]
+                       <= -1e38).all()),
+             f"{label}: a masked query does not read o = 0, lse = NEG_INF")
+    errs = {"flash_attention": (o.float() - o_p.float()).abs().max().item()}
+
+    delta = (do.float() * o_p.float()).sum(dim=-1).contiguous()
+    args = (q, k, v, do, lse_p, delta, ql, kl)
+    dq = fa.flash_bwd_dq(*args, **kw)
+    dk, dv = fa.flash_bwd_dkv(*args, **kw)
+    dq_p = fa.flash_bwd_dq_plain(*args, **kw)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(*args, **kw)
+    torch.cuda.synchronize()
+    rtol = FLASH_GRAD_TOL[dtype]
+    errs["flash_bwd_dq"] = _grad_close(dq, dq_p, rtol, f"{label} dq")
+    errs["flash_bwd_dkv"] = max(_grad_close(dk, dk_p, rtol, f"{label} dk"),
+                                _grad_close(dv, dv_p, rtol, f"{label} dv"))
+    dead_k = (torch.arange(n_k, device=q.device)[None, :]
+              >= kl[:, None])[:, None].expand(b, k.shape[1], n_k)
+    _require(bool((dq[dead[:, None].expand(b, h, n_q)] == 0).all()
+                  and (dk[dead_k] == 0).all() and (dv[dead_k] == 0).all()),
+             f"{label}: a masked query or key has a nonzero gradient")
+    print(f"  {label}: B={b} H={h} G={k.shape[1]} N={n_q} d={d} {dtype}: "
+          f"max|kernel - plain| B3 {errs['flash_attention']:.3e}, B4 "
+          f"{errs['flash_bwd_dq']:.3e}, B5 {errs['flash_bwd_dkv']:.3e}")
+    return errs
+
+
+def phase3_flash_kernels(torch, np) -> dict:
+    """B3, B4 and B5 against their plain versions on edge shapes.  Returns
+    {wrapper name: max |kernel - plain|}."""
+    errs = {"flash_attention": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for i, (label, (b, h, g, n, d), dtype, causal, window,
+            lens) in enumerate(FLASH_CASES):
+        q, k, v, do = _flash_inputs(torch, np, b, h, g, n, d, dtype,
+                                    seed=300 + i)
+        lens_t = (None if lens is None else
+                  torch.tensor(lens, dtype=torch.int32, device="cuda"))
+        got = _check_flash(torch, q, k, v, do, lens_t, causal, window, label)
+        errs = {key: max(errs[key], got[key]) for key in errs}
+    return errs
+
+
+def _causal_pairs(n_q, n_k, lens, causal, window) -> int:
+    """Live (query, key) pairs of one head, summed over the batch rows."""
+    total = 0
+    for ln in lens:
+        for i in range(min(ln, n_q)):
+            hi = min(i + 1, n_k, ln) if causal else min(n_k, ln)
+            lo = 0 if window is None else max(0, i - window + 1)
+            total += max(0, hi - lo)
+    return total
+
+
+def _flash_bounds(torch, q, k, lens, causal, window):
+    """(bound row of B3, of B4, of B5): each input read once, each output
+    written once; the products on the live pairs of this run's masks (4, 6
+    and 8 flops a pair and element of d) at the card's peak rate for the
+    input type: the bf16 tensor cores for bf16 inputs, f32 outside the
+    tensor cores for f32 inputs.  The f32 SIMT bound, the rate the kernels
+    compute at, stands beside it."""
+    b, h, n_q, d = q.shape
+    g, n_k = k.shape[1], k.shape[2]
+    lens = [n_q] * b if lens is None else [int(x) for x in lens.tolist()]
+    pairs = h * _causal_pairs(n_q, n_k, lens, causal, window)
+    e = q.element_size()
+    qb, kb = b * h * n_q * d * e, b * g * n_k * d * e
+    rows = 4 * b * h * n_q
+    nbytes = {"flash_attention": 2 * qb + 2 * kb + rows,
+              "flash_bwd_dq": 3 * qb + 2 * kb + 2 * rows,
+              "flash_bwd_dkv": 2 * qb + 4 * kb + 2 * rows}
+    flops = {"flash_attention": 4 * pairs * d, "flash_bwd_dq": 6 * pairs * d,
+             "flash_bwd_dkv": 8 * pairs * d}
+    rate = BF16_DENSE_FLOPS if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    out = {}
+    for name in nbytes:
+        bound_ms, bound_by = _bound(nbytes[name], flops[name], rate)
+        out[name] = {"bound_ms": bound_ms, "bound_by": bound_by,
+                     "bytes": nbytes[name], "flops": flops[name],
+                     "rate": rate,
+                     "f32_simt_bound_ms": _bound(nbytes[name],
+                                                 flops[name])[0]}
+    return out
+
+
+def flash_kernel_times(torch, q, k, v, do, lens, causal, window, card,
+                       n_iter=10, plain_iter=3):
+    """B3, B4 and B5 at the given (main-path) inputs: device time in a
+    replayed CUDA graph, eager call, plain version, bound, and the
+    ``scaled_dot_product_attention`` yardstick (forward for B3, its
+    backward for B4 + B5 together; timed here, never called by the port).
+    Returns {wrapper name: row}."""
+    import math
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b, _, n_q, d = q.shape
+    n_k = k.shape[2]
+    kw = dict(causal=causal, window=window, scale=1.0 / math.sqrt(d))
+    ql = fa._lens(lens, b, n_q, q.device)
+    kl = fa._lens(lens, b, n_k, q.device)
+    o, lse = fa.flash_attention(q, k, v, q_lens=lens, kv_lens=lens,
+                                return_residuals=True, **kw)
+    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+    args = (q, k, v, do, lse, delta, ql, kl)
+    calls = {
+        "flash_attention": (
+            lambda: fa.flash_attention(q, k, v, q_lens=lens, kv_lens=lens,
+                                       return_residuals=True, **kw),
+            lambda: fa.flash_attention_plain(q, k, v, ql, kl, **kw)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*args, **kw),
+                         lambda: fa.flash_bwd_dq_plain(*args, **kw)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*args, **kw),
+                          lambda: fa.flash_bwd_dkv_plain(*args, **kw)),
+    }
+    library = {"flash_attention": None, "flash_bwd_dq": None,
+               "flash_bwd_dkv": None}
+    if lens is None and window is None and causal and q.shape[1] == k.shape[1]:
+        qs, ks, vs = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        fwd_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), n_iter)
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do, retain_graph=True), n_iter)
+        library = {"flash_attention": fwd_ms, "flash_bwd_dq": bwd_ms,
+                   "flash_bwd_dkv": bwd_ms}
+    bounds = _flash_bounds(torch, q, k, lens, causal, window)
+    rows = {}
+    for name, (kernel, plain) in calls.items():
+        ms, call_ms, plain_ms, plain_call_ms = _kernel_times(
+            torch, kernel, plain, n_iter, plain_iter)
+        bd = bounds[name]
+        rows[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                      "plain_call_ms": plain_call_ms,
+                      "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+                      "library_ms": library[name],
+                      "f32_simt_bound_ms": bd["f32_simt_bound_ms"]}
+        lib = ("none" if library[name] is None
+               else f"{library[name] * 1e3:.2f} us")
+        print(f"  {name} at B={b} H={q.shape[1]} G={k.shape[1]} N={n_q} "
+              f"d={d} {str(q.dtype).split('.')[-1]}: device {ms * 1e3:.2f} "
+              f"us (eager call {call_ms * 1e3:.2f} us), plain device "
+              f"{plain_ms * 1e3:.2f} us (eager call {plain_call_ms * 1e3:.2f}"
+              f" us), bound {bd['bound_ms'] * 1e3:.2f} us by "
+              f"{bd['bound_by']} ({bd['bytes']} B, {bd['flops']} flop at "
+              f"{bd['rate'] / 1e12:.0f} TFLOP/s; "
+              f"{bd['f32_simt_bound_ms'] * 1e3:.2f} us at the f32 SIMT rate "
+              f"the kernel computes at), {ms / bd['bound_ms']:.2f}x the "
+              f"bound; SDPA {lib}  [{card}]")
+    return rows
 
 
 def phase3_small_model(torch, np) -> None:
@@ -427,6 +674,78 @@ def phase3_small_model(torch, np) -> None:
           f"3 train-step losses within {max(rel[1:]):.2e} relative")
 
 
+def phase3_small_softmax(torch, np) -> None:
+    """The small f32 softmax model on the card (flash kernels) against the
+    CPU (plain versions): greedy tokens of ``generate`` (plain and ragged
+    prompts), loss and every gradient, three train steps."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.synthetic import SyntheticLMIterator
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.factory import build
+    from repro_torch.serving.engine import generate
+    from repro_torch.train.optim import make_optimizer, warmup_cosine
+    from repro_torch.train.state import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    small = build(smoke_config(ARCH, attn_mode="softmax", n_kv_heads=2))
+    cpu_params = small.init(0, device="cpu")
+    prompts = np.random.default_rng(110).integers(0, small.cfg.vocab, (3, 9))
+    lens = [9, 4, 1]
+    outs = {}
+    launches = fa.flash_attention.n_launches
+    for dev, params in (("cpu", cpu_params), ("cuda", _to(cpu_params,
+                                                          "cuda"))):
+        plain, _ = generate(small, params, prompts, 6)
+        ragged, _ = generate(small, params, prompts, 6, prompt_lengths=lens)
+        outs[dev] = (plain.tolist(), ragged.tolist())
+    _require(fa.flash_attention.n_launches > launches,
+             "small softmax model: the card path launched no B3")
+    _require(outs["cpu"] == outs["cuda"], f"small softmax model: card "
+             f"tokens {outs['cuda']} != CPU tokens {outs['cpu']}")
+    print("  small f32 softmax model: greedy tokens on the card == on the "
+          "CPU (plain and ragged prompts, 36 tokens)")
+
+    data = SyntheticLMIterator(vocab=small.cfg.vocab, seq_len=32, batch=4)
+    batches = [next(data) for _ in range(3)]
+    grads, losses = {}, {}
+    launches = (fa.flash_bwd_dq.n_launches, fa.flash_bwd_dkv.n_launches)
+    for dev in ("cpu", "cuda"):
+        params = _to(cpu_params, dev)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
+        loss, _ = small.loss(params, batch)
+        grads[dev] = torch.autograd.grad(loss, leaves)
+        losses[dev] = [loss.item()]
+        opt = make_optimizer("adamw", warmup_cosine(3e-3, 1, 3))
+        state = init_train_state(params, opt)
+        step = make_train_step(small.loss, opt)
+        for b in batches:
+            state, metrics = step(state, b)
+            losses[dev].append(metrics["loss"].item())
+    _require(fa.flash_bwd_dq.n_launches > launches[0]
+             and fa.flash_bwd_dkv.n_launches > launches[1],
+             "small softmax model: the card path launched no B4 or B5")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    _require(rel[0] <= 1e-5, f"small softmax model: loss on the card "
+             f"{losses['cuda']} != on the CPU {losses['cpu']}")
+    gerr = 0.0
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        scale = b.abs().max().item()
+        err = (a.cpu() - b).abs().max().item()
+        _require(err <= TOL["rtol"] * scale + 1e-6, f"small softmax model: "
+                 f"a gradient differs by {err:.3e} (max |CPU| {scale:.3e})")
+        gerr = max(gerr, err / max(scale, 1e-6))
+    _require(max(rel[1:]) <= 1e-4, f"small softmax model: train-step losses "
+             f"on the card {losses['cuda'][1:]} != on the CPU "
+             f"{losses['cpu'][1:]}")
+    print(f"  small f32 softmax model: loss |card - CPU| / CPU = "
+          f"{rel[0]:.2e}; {len(grads['cpu'])} gradients within {gerr:.2e} "
+          f"of max |CPU|; 3 train-step losses within {max(rel[1:]):.2e} "
+          "relative")
+
+
 def phase4_serving(torch, np, card: str):
     """Full-width serving.  Returns (B1 launches, B1 row of the kernels'
     JSON at the serving shape, max |err| over captured inputs)."""
@@ -436,7 +755,11 @@ def phase4_serving(torch, np, card: str):
     from repro_torch.models.factory import build
     from repro_torch.models.lm import lm_state_init
     from repro_torch.models.param import count_params
-    from repro_torch.serving.engine import StreamingEngine, generate
+    from repro_torch.serving.engine import (
+        StreamingEngine,
+        decode_state_bytes,
+        generate,
+    )
     from repro_torch.serving.sampler import greedy_sampler
 
     cfg = get_config(ARCH)
@@ -504,8 +827,8 @@ def phase4_serving(torch, np, card: str):
         ticks += 1
     serve_s = time.perf_counter() - ts
     tg = time.perf_counter()
-    gen_toks, _ = generate(api, params, gen_prompts, GEN_NEW,
-                           sampler=checked_greedy)
+    gen_toks, gen_states = generate(api, params, gen_prompts, GEN_NEW,
+                                    sampler=checked_greedy)
     gen_s = time.perf_counter() - tg
     launches = aaren_scan.n_launches
 
@@ -524,8 +847,8 @@ def phase4_serving(torch, np, card: str):
     print(f"  served {len(rids)} requests / {served} tokens in {ticks} ticks,"
           f" {serve_s:.3f} s: tick median {tick_ms:.3f} ms, "
           f"{served / serve_s:.1f} tok/s  [{card}]")
-    print(f"  generate B={GEN_B} P={GEN_P} new={GEN_NEW}: {gen_s:.3f} s  "
-          f"[{card}]")
+    print(f"  generate B={GEN_B} P={GEN_P} new={GEN_NEW}: {gen_s:.3f} s; "
+          f"decode state {decode_state_bytes(gen_states)} B  [{card}]")
     print(f"  B1 launches on the serving path: {launches} = {cfg.n_layers} x"
           f" ({ticks} ticks + 1 prefill)")
 
@@ -710,6 +1033,182 @@ def phase4b_training(torch, np, card: str, cfg):
     return launches, out, errs
 
 
+def phase4c_softmax_training(torch, np, card: str, cfg):
+    """Training of the softmax ``cfg`` (full width in :func:`main`).
+    Returns ({kernel: launches}, {kernel: timing row at the training
+    shape}, {kernel: max |err| on the captured layer-0 inputs})."""
+    from repro_torch.data.synthetic import SyntheticLMIterator
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build
+    from repro_torch.models.param import count_params
+    from repro_torch.train.loop import LoopConfig, run_train_loop
+    from repro_torch.train.optim import make_optimizer, warmup_cosine
+    from repro_torch.train.state import init_train_state, make_train_step
+
+    _require((cfg.attn_mode, cfg.remat, cfg.optimizer)
+             == ("softmax", "block", "adamw"), str(cfg))
+    api = build(cfg)
+    n_params = count_params(api.specs())
+    steps = TRAIN_WARM + TRAIN_MEASURED
+    ti = time.perf_counter()
+    params = api.init(0, device="cuda")
+    opt = make_optimizer(cfg.optimizer, warmup_cosine(3e-4, 1, steps))
+    state = init_train_state(params, opt)
+    step_fn = make_train_step(api.loss, opt, max_grad_norm=1.0)
+    torch.cuda.synchronize()
+    print(f"  init {time.perf_counter() - ti:.2f} s: params + AdamW moments "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on card")
+    data = SyntheticLMIterator(vocab=cfg.vocab, seq_len=TRAIN_N,
+                               batch=TRAIN_B, seed=0)
+
+    # In the first step B3 runs forward for layers 0..31, then the remat
+    # recompute for 31..0; the backward runs for 31..0, so its last call
+    # is layer 0's: capture those inputs (cloning launches nothing).
+    calls = {"fwd": 0, "bwd": 0}
+    captured = {}
+    capturing = {"on": True}
+    real_fwd, real_bwd = ops.flash_attention, ops.flash_attention_bwd
+
+    def spy_fwd(*args, **kw):
+        if capturing["on"]:
+            calls["fwd"] += 1
+        return real_fwd(*args, **kw)
+
+    def spy_bwd(*args, **kw):
+        if capturing["on"]:
+            if calls["bwd"] == cfg.n_layers - 1:
+                captured["args"] = [a.clone() for a in args]
+                captured["kw"] = dict(kw)
+            calls["bwd"] += 1
+        return real_bwd(*args, **kw)
+
+    finite = {"ok": True}
+    losses = []
+
+    def on_log(step, m):
+        capturing["on"] = False
+        finite["ok"] &= bool(np.isfinite(m["loss"])
+                             and np.isfinite(m["grad_norm"]))
+        losses.append(m["loss"])
+        print(f"  step {step}: loss {m['loss']:.4f} grad_norm "
+              f"{m['grad_norm']:.4f} {m['step_time_s'] * 1e3:.1f} ms")
+
+    ops.flash_attention, ops.flash_attention_bwd = spy_fwd, spy_bwd
+    torch.cuda.reset_peak_memory_stats()
+    # The main path: counts from zero, read right after.
+    fa.flash_attention.n_launches = 0
+    fa.flash_bwd_dq.n_launches = fa.flash_bwd_dkv.n_launches = 0
+    try:
+        result = run_train_loop(step_fn, state, data,
+                                LoopConfig(total_steps=steps, log_every=1),
+                                on_log=on_log)
+    finally:
+        ops.flash_attention, ops.flash_attention_bwd = real_fwd, real_bwd
+    launches = {"flash_attention": fa.flash_attention.n_launches,
+                "flash_bwd_dq": fa.flash_bwd_dq.n_launches,
+                "flash_bwd_dkv": fa.flash_bwd_dkv.n_launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    _require(finite["ok"], f"non-finite loss or grad norm: {losses}")
+    _require(result.state.step == steps and len(result.history) == steps,
+             f"ran {result.state.step} steps, want {steps}")
+    _require(calls == {"fwd": 2 * cfg.n_layers, "bwd": cfg.n_layers},
+             f"first step called B3 {calls['fwd']} and the backward "
+             f"{calls['bwd']} times")
+    want = {"flash_attention": 2 * cfg.n_layers * steps,
+            "flash_bwd_dq": cfg.n_layers * steps,
+            "flash_bwd_dkv": cfg.n_layers * steps}
+    _require(launches == want, f"launches {launches}, want {want}")
+    print(f"  launches on the softmax training path over {steps} steps: B3 "
+          f"{launches['flash_attention']} = 2 x {cfg.n_layers} x {steps}, "
+          f"B4 {launches['flash_bwd_dq']} and B5 {launches['flash_bwd_dkv']}"
+          f" = {cfg.n_layers} x {steps}")
+
+    q, k, v, o, lse, do = captured["args"]
+    kw = captured["kw"]
+    _require(kw.get("q_lens") is None and kw.get("window") is None
+             and kw.get("causal", True), f"layer 0's flash call: {kw}")
+    errs = _check_flash(torch, q, k, v, do, None, True, None,
+                        "training step, layer 0 (captured)")
+
+    step_s = [m["step_time_s"] for _, m in result.history[TRAIN_WARM:]]
+    step_ms = statistics.median(step_s) * 1e3
+    tokens = TRAIN_B * TRAIN_N
+    mfu = 6 * n_params * tokens / (step_ms / 1e3) / BF16_DENSE_FLOPS
+    each = ", ".join(f"{s * 1e3:.1f}" for s in step_s)
+    print(f"  softmax training B={TRAIN_B} N={TRAIN_N}: step median "
+          f"{step_ms:.3f} ms over {len(step_s)} steps ({each} ms), "
+          f"{tokens / (step_ms / 1e3):.1f} tokens/s  [{card}]")
+    print(f"  peak memory allocated {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated)  [{card}]")
+    print(f"  MFU {mfu:.2%}: 6 x {n_params} params x {tokens} tokens per "
+          f"step over the H100 SXM bf16 dense peak of "
+          f"{BF16_DENSE_FLOPS / 1e12:.0f} TFLOP/s  [{card}]")
+    print(f"  loss {'fell' if losses[-1] < losses[0] else 'did not fall'}: "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (not required at full width)")
+
+    # Where a step's time goes (after the counts were read).
+    train_state = {"state": result.state}
+    batch = next(data)
+
+    def one_step():
+        train_state["state"], _ = step_fn(train_state["state"], batch)
+
+    _print_profile(_device_profile(torch, one_step, 1), "softmax train step",
+                   card, top=16)
+    del train_state, result, state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = flash_kernel_times(torch, q, k, v, do, None, True, None, card)
+    return launches, rows, errs
+
+
+def phase4d_softmax_generate(torch, np, card: str, cfg):
+    """Wave ``generate`` of the softmax ``cfg`` with a KV cache (B = 4,
+    P = 128, 8 new tokens, cache_len = 136).  Returns B3's launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.factory import build
+    from repro_torch.serving.engine import decode_state_bytes, generate
+    from repro_torch.serving.sampler import greedy_sampler
+
+    api = build(cfg)
+    params = api.init(0, device="cuda")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (GEN_B, GEN_P))
+    cache_len = GEN_P + GEN_NEW
+    finite = {"ok": True}
+
+    def checked_greedy(logits, seeds):
+        finite["ok"] &= bool(torch.isfinite(logits).all())
+        return greedy_sampler(logits, seeds)
+
+    generate(api, params, prompts, 2, cache_len=cache_len)  # warm-up
+    torch.cuda.synchronize()
+    # The main path: counts from zero, read right after.
+    fa.flash_attention.n_launches = 0
+    fa.flash_bwd_dq.n_launches = fa.flash_bwd_dkv.n_launches = 0
+    tg = time.perf_counter()
+    toks, states = generate(api, params, prompts, GEN_NEW,
+                            sampler=checked_greedy, cache_len=cache_len)
+    gen_s = time.perf_counter() - tg
+    launches = (fa.flash_attention.n_launches, fa.flash_bwd_dq.n_launches,
+                fa.flash_bwd_dkv.n_launches)
+    _require(tuple(toks.shape) == (GEN_B, GEN_NEW),
+             f"generate returned {tuple(toks.shape)}")
+    _require(finite["ok"], "non-finite logits on the softmax serving path")
+    _require(launches == (cfg.n_layers, 0, 0),
+             f"generate launched B3/B4/B5 {launches} times, want "
+             f"({cfg.n_layers}, 0, 0): one prefill, plain-torch decode")
+    _require(all(int(st["index"]) == GEN_P + GEN_NEW - 1
+                 and st["k"].shape[1] == cache_len for st in states),
+             "the KV caches do not hold prompt + generated tokens")
+    print(f"  softmax generate B={GEN_B} P={GEN_P} new={GEN_NEW} "
+          f"cache_len={cache_len}: {gen_s:.3f} s; B3 launches {launches[0]}"
+          f" (one prefill), decode state {decode_state_bytes(states)} B  "
+          f"[{card}]")
+    return launches[0]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -753,7 +1252,9 @@ def main() -> int:
     # 3. Kernels against their plain versions --------------------------------
     _phase("3 kernels against plain versions", t0)
     b1_err, b2_err = phase3_kernels(torch, np)
+    flash_errs = phase3_flash_kernels(torch, np)
     phase3_small_model(torch, np)
+    phase3_small_softmax(torch, np)
 
     # 4. Full-width serving ------------------------------------------------
     _phase("4 full-width serving", t0)
@@ -773,6 +1274,21 @@ def main() -> int:
                                                         cfg)
     b1_err = max(b1_err, errs["aaren_scan"])
     b2_err = max(b2_err, errs["aaren_scan_bwd"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4c. Full-width softmax training --------------------------------------
+    _phase("4c full-width softmax training", t0)
+    soft_cfg = get_config(ARCH, attn_mode="softmax")
+    soft_launches, flash_rows, errs = phase4c_softmax_training(
+        torch, np, card, soft_cfg)
+    flash_errs = {k: max(v, errs[k]) for k, v in flash_errs.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4d. Full-width softmax generate with a KV cache ----------------------
+    _phase("4d full-width softmax generate", t0)
+    gen_b3 = phase4d_softmax_generate(torch, np, card, soft_cfg)
 
     # 5. Results ---------------------------------------------------------------
     _phase("5 results", t0)
@@ -796,6 +1312,28 @@ def main() -> int:
          "max_abs_err": b2_err, **train_rows["aaren_scan_bwd"],
          "library_ms": None},
     ]
+    flash_meta = (
+        ("flash_attention", "flash_fwd.cu", ":244",
+         {"serve": gen_b3, "train": soft_launches["flash_attention"]}),
+        ("flash_bwd_dq", "flash_bwd.cu", ":548",
+         {"serve": 0, "train": soft_launches["flash_bwd_dq"]}),
+        ("flash_bwd_dkv", "flash_bwd.cu", ":581",
+         {"serve": 0, "train": soft_launches["flash_bwd_dkv"]}),
+    )
+    for name, source, line, by_path in flash_meta:
+        row = flash_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/flash_attention.py{line}",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": flash_errs[name],
+            **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+            "library": ("scaled_dot_product_attention forward" if name ==
+                        "flash_attention" else "scaled_dot_product_attention"
+                        " backward, B4 + B5 together"),
+            "shape": "training, layer 0: B=4 H=G=32 N=1024 d=96 bf16 causal"})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

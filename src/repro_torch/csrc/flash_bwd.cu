@@ -1,0 +1,328 @@
+// Flash attention, backward, for Hopper (sm_90a): the dq pass (B4) and the
+// dk/dv pass (B5), two kernels.
+//
+// Replaces the Pallas TPU kernel `flash_attention_bwd` in
+// src/repro/kernels/flash_attention.py (wrapper at :472; dq pallas_call at
+// :548, body `_flash_bwd_dq_kernel`; dk/dv pallas_call at :581, body
+// `_flash_bwd_dkv_kernel`; both through `_recompute_p_ds`), without
+// packed-segment ids.  From the forward's residual lse and
+// delta_i = do_i . o_i (computed by the wrapper):
+//
+//   p_ij  = exp(s_ij - lse_i) on the mask, 0 off it
+//   ds_ij = p_ij (do_i . v_j - delta_i)
+//   dq_i  = scale * sum_j ds_ij k_j                               (B4)
+//   dk_j  = scale * sum_{h in group, i} ds_ij q_i                 (B5)
+//   dv_j  =         sum_{h in group, i} p_ij do_i                 (B5)
+//
+// Re-applying the mask after the exp keeps the rows of empty queries (lse =
+// NEG_INF, where exp(s - lse) would be 1) at p = 0, so masked queries get
+// dq = 0 and masked keys dk = dv = 0.
+//
+// Design.  B4 has B3's grid: one block per (b, h, 64-row q-tile) walking the
+// kv tiles the q-tile can see, with Q and dO staged for the whole walk; per
+// kv tile it forms S = Q K^T and dP = dO V^T as register-tiled f32 products,
+// then ds, then dq += dS K.  B5 turns the walk around: one block per (b, g,
+// kv-tile) holds K and V, loops over the group's query heads and over the
+// q-tiles that can see this kv-tile (from the causal diagonal to the window's
+// far edge and q_len), and accumulates dv += P^T dO and dk += dS^T Q in f32
+// registers.  The Pallas kernel accumulates per query head and the wrapper
+// group-sums; summing over the group inside the block writes kv-head
+// outputs once.  IEEE f32 throughout: fmaf, expf; bf16 converted on load.
+//
+// Bound.  On phi3-mini-3.8b's training shape (B = 4, H = G = 32, N = 1024,
+// d = 96, causal, bf16 in) B4 does three products (S, dP, dS K), 38.7 GFLOP,
+// 39 us at the 989 TFLOP/s bf16 tensor-core peak, against ~127 MB (38 us);
+// B5 four (S, dP, P^T dO, dS^T Q), 51.5 GFLOP, 52 us, against ~151 MB
+// (45 us).  Both functions are bound by operations.  This design computes
+// in IEEE f32 on the SIMT cores, which caps them at 577 and 770 us
+// (67 TFLOP/s); the tensor-core redesign is later work.
+
+#include "flash_common.cuh"
+
+// B4: dq.
+template <typename T, int NK, int BQ, int BK>
+__global__ void __launch_bounds__(FLASH_THREADS)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int* __restrict__ q_lens,
+                        const int* __restrict__ kv_lens, T* __restrict__ dq,
+                        int H, int G, int Nq, int Nk, int d, float scale,
+                        int causal, int window) {
+  constexpr int RI = BQ / 16, CJ = BK / 16, LD = 16 * NK + 4, PS = BQ + 4;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sO = sQ + BQ * LD;  // dO
+  float* sK = sO + BQ * LD;
+  float* sV = sK + BK * LD;
+  float* sS = sV + BK * LD;  // dS^T: (BK, PS)
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / G);
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int q_len = q_lens[b], kv_len = kv_lens[b];
+  const long long row_base = ((long long)b * H + h) * Nq;
+  const long long qo_base = row_base * d;
+  const long long kv_base = ((long long)b * G + g) * Nk * d;
+  const int d4 = (d + 3) & ~3;
+
+  load_tile<T, BQ, LD>(sQ, q + qo_base, q0, Nq, d);
+  load_tile<T, BQ, LD>(sO, dout + qo_base, q0, Nq, d);
+  float L[RI], D[RI], acc[RI][NK];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty * RI + i;
+    L[i] = row < Nq ? lse[row_base + row] : FLASH_NEG_INF;
+    D[i] = row < Nq ? delta[row_base + row] : 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) acc[i][kk] = 0.f;
+  }
+
+  int kbeg, kend;
+  key_range(q0, BQ, Nq, Nk, q_len, kv_len, causal, window, BK, &kbeg, &kend);
+  for (int k0 = kbeg; k0 < kend; k0 += BK) {
+    __syncthreads();
+    load_tile<T, BK, LD>(sK, k + kv_base, k0, Nk, d);
+    load_tile<T, BK, LD>(sV, v + kv_base, k0, Nk, d);
+    __syncthreads();
+
+    float s[RI][CJ], dp[RI][CJ];
+    tile_dot<RI, CJ, LD>(sQ, sK, d4, ty, tx, s);
+    tile_dot<RI, CJ, LD>(sO, sV, d4, ty, tx, dp);
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int qp = q0 + ty * RI + i;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const bool ok =
+            pair_valid(qp, k0 + tx + 16 * j, q_len, kv_len, causal, window);
+        const float p = ok ? expf(s[i][j] * scale - L[i]) : 0.f;
+        sS[(tx + 16 * j) * PS + ty * RI + i] = p * (dp[i][j] - D[i]);
+      }
+    }
+    __syncthreads();
+    tile_acc<RI, NK, PS, LD>(sS, sK, BK, ty, tx, acc);
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty * RI + i;
+    if (row >= Nq) continue;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const int c = tx + 16 * kk;
+      if (c < d)
+        dq[qo_base + (long long)row * d + c] = from_f32<T>(scale * acc[i][kk]);
+    }
+  }
+}
+
+// B5: dk and dv.  Rows of the score tile are keys, columns queries.
+template <typename T, int NK, int KT, int QT>
+__global__ void __launch_bounds__(FLASH_THREADS)
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const int* __restrict__ q_lens,
+                         const int* __restrict__ kv_lens, T* __restrict__ dk,
+                         T* __restrict__ dv, int H, int G, int Nq, int Nk,
+                         int d, float scale, int causal, int window) {
+  constexpr int RJ = KT / 16, CI = QT / 16, LD = 16 * NK + 4, PS = KT + 4;
+  extern __shared__ float4 smem4[];
+  float* sK = reinterpret_cast<float*>(smem4);
+  float* sV = sK + KT * LD;
+  float* sQ = sV + KT * LD;
+  float* sO = sQ + QT * LD;   // dO
+  float* sP = sO + QT * LD;   // P^T as (query, key): (QT, PS)
+  float* sS = sP + QT * PS;   // dS^T: (QT, PS)
+  float* sL = sS + QT * PS;   // lse of the q-tile: (QT,)
+  float* sD = sL + QT;        // delta of the q-tile: (QT,)
+
+  const int k0 = blockIdx.x * KT, g = blockIdx.y, b = blockIdx.z;
+  const int group = H / G;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int q_len = q_lens[b], kv_len = kv_lens[b];
+  const long long kv_base = ((long long)b * G + g) * Nk * d;
+  const int d4 = (d + 3) & ~3;
+
+  load_tile<T, KT, LD>(sK, k + kv_base, k0, Nk, d);
+  load_tile<T, KT, LD>(sV, v + kv_base, k0, Nk, d);
+  float adk[RJ][NK], adv[RJ][NK];
+#pragma unroll
+  for (int r = 0; r < RJ; ++r)
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) adk[r][kk] = adv[r][kk] = 0.f;
+
+  // Queries [qbeg, qend) that keys [k0, min(k0 + KT, Nk, kv_len)) can see.
+  const int khi = min(min(k0 + KT, Nk), kv_len);
+  int qbeg = causal ? k0 : 0;
+  int qend = min(Nq, q_len);
+  if (window >= 0) qend = min(qend, khi - 1 + window);
+  if (khi <= k0) qend = 0;
+  qbeg = (qbeg / QT) * QT;
+
+  for (int hh = 0; hh < group; ++hh) {
+    const int h = g * group + hh;
+    const long long row_base = ((long long)b * H + h) * Nq;
+    for (int q0 = qbeg; q0 < qend; q0 += QT) {
+      __syncthreads();
+      load_tile<T, QT, LD>(sQ, q + row_base * d, q0, Nq, d);
+      load_tile<T, QT, LD>(sO, dout + row_base * d, q0, Nq, d);
+      for (int t = threadIdx.x; t < QT; t += FLASH_THREADS) {
+        const int row = q0 + t;
+        sL[t] = row < Nq ? lse[row_base + row] : FLASH_NEG_INF;
+        sD[t] = row < Nq ? delta[row_base + row] : 0.f;
+      }
+      __syncthreads();
+
+      float s[RJ][CI], dp[RJ][CI];
+      tile_dot<RJ, CI, LD>(sK, sQ, d4, ty, tx, s);
+      tile_dot<RJ, CI, LD>(sV, sO, d4, ty, tx, dp);
+#pragma unroll
+      for (int r = 0; r < RJ; ++r) {
+        const int kp = k0 + ty * RJ + r;
+#pragma unroll
+        for (int c = 0; c < CI; ++c) {
+          const int ql = tx + 16 * c;
+          const bool ok =
+              pair_valid(q0 + ql, kp, q_len, kv_len, causal, window);
+          const float p = ok ? expf(s[r][c] * scale - sL[ql]) : 0.f;
+          sP[ql * PS + ty * RJ + r] = p;
+          sS[ql * PS + ty * RJ + r] = p * (dp[r][c] - sD[ql]);
+        }
+      }
+      __syncthreads();
+      tile_acc<RJ, NK, PS, LD>(sP, sO, QT, ty, tx, adv);
+      tile_acc<RJ, NK, PS, LD>(sS, sQ, QT, ty, tx, adk);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < RJ; ++r) {
+    const int row = k0 + ty * RJ + r;
+    if (row >= Nk) continue;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const int c = tx + 16 * kk;
+      if (c < d) {
+        dk[kv_base + (long long)row * d + c] = from_f32<T>(scale * adk[r][kk]);
+        dv[kv_base + (long long)row * d + c] = from_f32<T>(adv[r][kk]);
+      }
+    }
+  }
+}
+
+template <typename T, int NK>
+static int launch_dq(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     const int* q_lens, const int* kv_lens, void* dq, int B,
+                     int H, int G, int Nq, int Nk, int d, float scale,
+                     int causal, int window, cudaStream_t stream) {
+  constexpr int BQ = 64, BK = NK > 8 ? 32 : 64, LD = 16 * NK + 4;
+  constexpr size_t smem = sizeof(float) * ((size_t)(2 * BQ + 2 * BK) * LD +
+                                           (size_t)BK * (BQ + 4));
+  auto kernel = flash_bwd_dq_kernel<T, NK, BQ, BK>;
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t err = set_smem_once(smem_set, kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Nq + BQ - 1) / BQ, H, B);
+  kernel<<<grid, FLASH_THREADS, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+      q_lens, kv_lens, (T*)dq, H, G, Nq, Nk, d, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NK>
+static int launch_dkv(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      const int* q_lens, const int* kv_lens, void* dk,
+                      void* dv, int B, int H, int G, int Nq, int Nk, int d,
+                      float scale, int causal, int window,
+                      cudaStream_t stream) {
+  constexpr int KT = NK > 8 ? 32 : 64, QT = KT, LD = 16 * NK + 4;
+  constexpr size_t smem =
+      sizeof(float) * ((size_t)(2 * KT + 2 * QT) * LD +
+                       2 * (size_t)QT * (KT + 4) + 2 * (size_t)QT);
+  auto kernel = flash_bwd_dkv_kernel<T, NK, KT, QT>;
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t err = set_smem_once(smem_set, kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Nk + KT - 1) / KT, G, B);
+  kernel<<<grid, FLASH_THREADS, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+      q_lens, kv_lens, (T*)dk, (T*)dv, H, G, Nq, Nk, d, scale, causal,
+      window);
+  return (int)cudaGetLastError();
+}
+
+#define FLASH_BWD_SWITCH(CALL)     \
+  switch (flash_nk(d)) {           \
+    case 2:                        \
+      return CALL(2);              \
+    case 4:                        \
+      return CALL(4);              \
+    case 6:                        \
+      return CALL(6);              \
+    case 8:                        \
+      return CALL(8);              \
+    default:                       \
+      return CALL(16);             \
+  }
+
+static bool bad_shape(int B, int H, int G, int Nq, int Nk, int d) {
+  return B <= 0 || H <= 0 || G <= 0 || H % G != 0 || Nq <= 0 || Nk <= 0 ||
+         d <= 0 || d > FLASH_MAX_D;
+}
+
+extern "C" {
+
+int flash_bwd_max_d() { return FLASH_MAX_D; }
+
+// Shapes and dtypes as flash_fwd; dout like q; lse and delta (B, H, Nq)
+// f32; dq like q.  Launches on `stream`; does not synchronise and allocates
+// nothing.  Returns cudaGetLastError() after the launch.
+int flash_bwd_dq(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 const int* q_lens, const int* kv_lens, void* dq, int B,
+                 int H, int G, int Nq, int Nk, int d, float scale, int causal,
+                 int window, int is_bf16, void* stream) {
+  if (bad_shape(B, H, G, Nq, Nk, d)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define DQ_CALL(NK)                                                         \
+  (is_bf16 ? launch_dq<__nv_bfloat16, NK>(q, k, v, dout, lse, delta,       \
+                                          q_lens, kv_lens, dq, B, H, G, Nq, \
+                                          Nk, d, scale, causal, window, s)  \
+           : launch_dq<float, NK>(q, k, v, dout, lse, delta, q_lens,       \
+                                  kv_lens, dq, B, H, G, Nq, Nk, d, scale,  \
+                                  causal, window, s))
+  FLASH_BWD_SWITCH(DQ_CALL)
+#undef DQ_CALL
+}
+
+// dk/dv like k/v, written for every kv head (group-summed in the block).
+int flash_bwd_dkv(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  const int* q_lens, const int* kv_lens, void* dk, void* dv,
+                  int B, int H, int G, int Nq, int Nk, int d, float scale,
+                  int causal, int window, int is_bf16, void* stream) {
+  if (bad_shape(B, H, G, Nq, Nk, d)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define DKV_CALL(NK)                                                         \
+  (is_bf16 ? launch_dkv<__nv_bfloat16, NK>(q, k, v, dout, lse, delta,       \
+                                           q_lens, kv_lens, dk, dv, B, H, G, \
+                                           Nq, Nk, d, scale, causal, window, \
+                                           s)                                \
+           : launch_dkv<float, NK>(q, k, v, dout, lse, delta, q_lens,       \
+                                   kv_lens, dk, dv, B, H, G, Nq, Nk, d,     \
+                                   scale, causal, window, s))
+  FLASH_BWD_SWITCH(DKV_CALL)
+#undef DKV_CALL
+}
+
+const char* flash_bwd_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -2,8 +2,9 @@
 
 Each source ``csrc/<name>.cu`` exposes a plain C interface and compiles on
 its own into ``build/lib<name>-<digest>.so`` at the repository root, where
-``<digest>`` hashes the source and the flags, so an edited source rebuilds
-and an unchanged one is loaded as it is.  Nothing is compiled at import:
+``<digest>`` hashes the source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source rebuilds and an unchanged one is loaded as it
+is.  Nothing is compiled at import:
 the first launch builds what it needs, and :func:`build` starts one
 ``nvcc`` per source, all at once, for callers that want every kernel ready.
 """
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("aaren_scan", "aaren_scan_bwd")
+KERNELS = ("aaren_scan", "aaren_scan_bwd", "flash_fwd", "flash_bwd")
 
 
 def _nvcc() -> str:
@@ -40,8 +41,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

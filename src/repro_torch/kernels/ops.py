@@ -1,9 +1,11 @@
-"""The kernel boundary of the Aaren mixer: ``aaren_prefix_attention``.
+"""The kernel boundaries of the two mixers: ``aaren_prefix_attention``
+(Aaren) and ``flash_mha`` (softmax attention).
 
-Port of ``repro.kernels.ops.aaren_prefix_attention`` and its custom VJP.
-Every Aaren prefill, chunk, decode and training pass reaches the prefix-scan
-kernels through here.  Dispatch is by device, inside the kernel wrappers: a
-CPU tensor takes the plain torch versions, a CUDA tensor the CUDA kernels.
+Port of ``repro.kernels.ops.aaren_prefix_attention`` and ``flash_mha`` with
+their custom VJPs.  Every Aaren prefill, chunk, decode and training pass
+reaches the prefix-scan kernels through here, and every softmax forward the
+flash kernels.  Dispatch is by device, inside the kernel wrappers: a CPU
+tensor takes the plain torch versions, a CUDA tensor the CUDA kernels.
 
 Gradients go through one ``torch.autograd.Function`` for both devices, with
 the JAX package's residual contract: the forward runs the scan with
@@ -11,7 +13,9 @@ the JAX package's residual contract: the forward runs the scan with
 incoming carries; the backward runs the reverse scan ``aaren_scan_bwd``
 seeded with ``(-m_f, g_{w_f}, -g_{u_f})`` and finishes with
 :func:`aaren_bwd_epilogue`.  A call that needs no gradient (serving) runs
-the scan without residuals.
+the scan without residuals.  ``FlashAttention`` does the same for softmax
+attention: its forward saves ``(q, k, v, o, lse)`` and its backward runs
+the dq and dk/dv passes.
 """
 
 from __future__ import annotations
@@ -23,6 +27,10 @@ import torch
 from repro_torch.core.scan_attention import NEG_INF, ScanState
 from repro_torch.kernels.aaren_scan import aaren_scan
 from repro_torch.kernels.aaren_scan_bwd import aaren_scan_bwd
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+)
 
 
 def aaren_bwd_epilogue(s, m0, u0, w0, m_f, u_f, w_f, g_m, g_u, g_w,
@@ -116,3 +124,56 @@ def aaren_prefix_attention(s, v, carry: ScanState | None = None, *,
     final = ScanState(m=m_f.reshape(batch_shape), u=u_f.reshape(batch_shape),
                       w=w_f.reshape(batch_shape + (d,)))
     return o.reshape(batch_shape + (n, d)).to(v.dtype), final
+
+
+class FlashAttention(torch.autograd.Function):
+    """(q, k, v) -> o in the kernels' (B, H, N, d) layout, with the analytic
+    backward from the residuals ``(q, k, v, o, lse)`` — the contract of the
+    JAX package's ``_flash_fwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_lens, kv_lens, causal, window, scale):
+        o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                 scale=scale, q_lens=q_lens, kv_lens=kv_lens,
+                                 return_residuals=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.lens = (q_lens, kv_lens)
+        ctx.mask = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, lse, do.contiguous(), causal=causal, window=window,
+            scale=scale, q_lens=ctx.lens[0], kv_lens=ctx.lens[1])
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_mha(q, k, v, *, causal: bool = True, window: int | None = None,
+              scale: float | None = None, q_lens=None, kv_lens=None,
+              q_segment_ids=None, kv_segment_ids=None):
+    """Flash attention over (B, Nq, H, d) q and (B, Nk, G, d) k/v.
+
+    The model's layout is sequence-major; the kernels want head-major
+    (B, H, N, d), so the boundary transposes.  ``q_lens``/``kv_lens``:
+    optional (B,) true lengths, masked inside the kernels and their
+    backward.  Differentiable in q, k and v; a call that needs no gradient
+    (prefill) runs the forward kernel without its ``lse`` residual.
+    Returns (B, Nq, H, d).
+    """
+    if q_segment_ids is not None or kv_segment_ids is not None:
+        raise NotImplementedError(
+            "packed sequences (segment ids) come with the packing slice of "
+            "the port (ROADMAP queue A item 7)")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        o = FlashAttention.apply(qt, kt, vt, q_lens, kv_lens, causal, window,
+                                 float(scale))
+    else:
+        o = flash_attention(qt, kt, vt, causal=causal, window=window,
+                            scale=scale, q_lens=q_lens, kv_lens=kv_lens)
+    return o.transpose(1, 2)

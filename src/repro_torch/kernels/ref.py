@@ -1,13 +1,19 @@
-"""Dense oracles for the Aaren prefix scan and its VJP — the port of
-``repro.kernels.ref.aaren_scan_reference`` and ``aaren_scan_vjp_reference``,
-written with the simplest correct torch (no scan tricks) so they double as
-the readable spec.  Only the tests use them."""
+"""Dense oracles for the Aaren prefix scan and flash attention, with their
+VJPs — the port of ``repro.kernels.ref`` (``aaren_scan_reference``,
+``aaren_scan_vjp_reference``, ``flash_reference``,
+``flash_vjp_reference``; segment ids come with the packing slice), written
+with the simplest correct torch so they double as the readable spec.  The
+flash oracles are the plain versions of B3–B5 under the JAX oracles'
+signatures.  Only the tests use them."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.core.scan_attention import NEG_INF
+from repro_torch.kernels import flash_attention as fa
 
 
 def aaren_scan_reference(s, v, m0=None, u0=None, w0=None):
@@ -99,3 +105,40 @@ def aaren_scan_vjp_reference(s, v, m0, u0, w0, g_o, g_m, g_u, g_w):
     ds = ds + c * hit_s
     dm0 = u0 * du0 + (w0 * dw0).sum(dim=-1, keepdim=True) + c * hit_0
     return ds, dv, dm0, du0, dw0
+
+
+def flash_reference(q, k, v, *, causal=True, window=None, scale=None,
+                    q_lens=None, kv_lens=None):
+    """Row-wise softmax attention under causal / window / length masks:
+    the plain version of B3 (``flash_attention_plain``, dense torch).
+
+    q: (B, H, Nq, d); k/v: (B, G, Nk, d), GQA-aware.  Queries at or beyond
+    ``q_lens`` and rows with no live key output 0.  Returns (B, H, Nq, d)
+    in q's dtype.
+    """
+    b, _, n_q, d = q.shape
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    return fa.flash_attention_plain(
+        q, k, v, fa._lens(q_lens, b, n_q, q.device),
+        fa._lens(kv_lens, b, k.shape[2], q.device), causal=causal,
+        window=window, scale=scale)[0]
+
+
+def flash_vjp_reference(q, k, v, do, *, causal=True, window=None, scale=None,
+                        q_lens=None, kv_lens=None):
+    """Analytic flash-attention cotangents: the plain versions of B3, B4
+    and B5 in sequence.  With ``p = softmax(mask(q kᵀ scale))`` and
+    ``D_i = do_i · o_i``: ``dS = p ⊙ (do vᵀ − D)``, ``dq = dS k · scale``,
+    ``dk = dSᵀ q · scale``, ``dv = pᵀ do``, group-summed for GQA.  Returns
+    (dq, dk, dv) in the input dtypes.
+    """
+    b, _, n_q, d = q.shape
+    kw = dict(causal=causal, window=window,
+              scale=1.0 / math.sqrt(d) if scale is None else scale)
+    ql = fa._lens(q_lens, b, n_q, q.device)
+    kl = fa._lens(kv_lens, b, k.shape[2], q.device)
+    o, lse = fa.flash_attention_plain(q, k, v, ql, kl, **kw)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    args = (q, k, v, do, lse, delta, ql, kl)
+    return (fa.flash_bwd_dq_plain(*args, **kw),
+            *fa.flash_bwd_dkv_plain(*args, **kw))

@@ -3,12 +3,16 @@
 Parameters are random, drawn from ``--seed``; prompts are random token ids
 from ``--seed + 1``.  A warm-up step runs before the timed section, and
 warm-up and steady-state time are reported separately.  Runs on the card
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given.  ``--attn-mode softmax`` serves the
+softmax baseline, whose KV-cache decode state only the wave engine takes;
+the wave engine prints the decode state's size.
 
 Example::
 
     python -m repro_torch.launch.serve --arch phi3-mini-3.8b \
         --engine streaming --requests 16 --slots 8 --chunk 16 --max-new 32
+    python -m repro_torch.launch.serve --arch phi3-mini-3.8b \
+        --attn-mode softmax --engine wave --requests 4 --prompt-len 128
 """
 
 from __future__ import annotations
@@ -21,7 +25,11 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models.factory import build
-from repro_torch.serving.engine import StreamingEngine, generate
+from repro_torch.serving.engine import (
+    StreamingEngine,
+    decode_state_bytes,
+    generate,
+)
 from repro_torch.serving.sampler import greedy_sampler, temperature_sampler
 
 
@@ -34,6 +42,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--attn-mode", default="aaren",
+                    choices=["aaren", "softmax"])
     ap.add_argument("--engine", default="streaming",
                     choices=["streaming", "wave"])
     ap.add_argument("--requests", type=int, default=8)
@@ -48,7 +58,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    api = build(cfg)
+    api = build(cfg.replace(attn_mode=args.attn_mode))
     t0 = time.perf_counter()
     params = api.init(args.seed, device=args.device)
     device = params["embed"]["table"].device
@@ -61,16 +71,22 @@ def main(argv=None):
     n_tokens = args.requests * args.max_new
 
     if args.engine == "wave":
+        # cache_len pinned to the timed call's, as in the JAX launcher.
+        cache_len = args.prompt_len + args.max_new
         t0 = time.perf_counter()
-        generate(api, params, prompts, 2, sampler=sampler, seed=args.seed)
+        generate(api, params, prompts, 2, sampler=sampler, seed=args.seed,
+                 cache_len=cache_len)
+        _sync(device)
         warm_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        toks, _ = generate(api, params, prompts, args.max_new,
-                           sampler=sampler, seed=args.seed)
+        toks, states = generate(api, params, prompts, args.max_new,
+                                sampler=sampler, seed=args.seed,
+                                cache_len=cache_len)
         steady_s = time.perf_counter() - t0
         print(f"[wave] warm-up {warm_s:.2f}s | steady {steady_s:.2f}s for "
               f"{tuple(toks.shape)} = {n_tokens} tokens "
-              f"({n_tokens / steady_s:.0f} tok/s)")
+              f"({n_tokens / steady_s:.0f} tok/s); decode state "
+              f"{decode_state_bytes(states) / 2**20:.3f} MiB")
         return
     eng = StreamingEngine(api, params, n_slots=args.slots, chunk=args.chunk,
                           sampler=sampler, seed=args.seed)

@@ -2,10 +2,11 @@
 synthetic token stream — port of ``repro.launch.train``.
 
 The same flags and the same log line as the JAX launcher.  Runs on the card
-unless ``--device cpu`` is given.  Flags of later slices of the port
-(softmax attention, checkpoints, guarded numerics, event and metrics sinks,
-mesh parallelism) are accepted and refused with the ROADMAP item that
-brings them.
+unless ``--device cpu`` is given; ``--attn-mode softmax`` trains the
+softmax baseline through the flash kernels.  Flags of later slices of the
+port (checkpoints, guarded numerics, event and metrics sinks, mesh
+parallelism) are accepted and refused with the ROADMAP item that brings
+them.
 
 Example::
 
@@ -28,7 +29,6 @@ from repro_torch.train.state import init_train_state, make_train_step
 
 def _refuse_later_flags(args) -> None:
     later = [
-        ("--attn-mode softmax", args.attn_mode != "aaren", 6),
         ("--ckpt-dir", args.ckpt_dir is not None, 8),
         ("--guard", args.guard, 8),
         ("--events", args.events is not None, 8),

@@ -32,7 +32,8 @@ class ModelAPI:
 def build(cfg: ArchConfig) -> ModelAPI:
     if cfg.family not in ("dense",):
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port builds dense Aaren LMs only")
+            f"family {cfg.family!r}: the port builds dense LMs only (Aaren "
+            "or softmax attention)")
     specs_fn = lambda: lm.lm_specs(cfg)  # noqa: E731
 
     def init(seed: int, device="cuda"):
@@ -47,8 +48,10 @@ def build(cfg: ArchConfig) -> ModelAPI:
         return logits
 
     def prefill(params, batch):
-        # "lengths": optional (B,) true prompt lengths of right-padded rows.
+        # "lengths": optional (B,) true prompt lengths of right-padded rows;
+        # "cache_len": the KV-cache slots of softmax layers (default N).
         return lm.lm_apply(cfg, params, batch["tokens"], collect_state=True,
+                           cache_len=batch.get("cache_len"),
                            lengths=batch.get("lengths"))
 
     def decode_step(params, step_batch):

@@ -1,22 +1,25 @@
-"""Decoder-only language model of Aaren blocks — port of ``repro.models.lm``.
+"""Decoder-only language model — port of ``repro.models.lm`` for dense
+patterns of Aaren and softmax-attention blocks.
 
 Parameters are a plain tree: ``{"embed", "final_norm", "unembed"?,
 "layers": [block params, ...]}``.  ``layers`` is flat and in the JAX
 package's order: period ``i``, pattern position ``pos`` is layer
 ``i·len(pattern) + pos``, then the remainder ("rest") layers; the JAX
 package's stacked ``lax.scan`` over periods becomes a Python loop.  Decode
-states are a list with one ScanState per layer, batch on axis 0 of every
-leaf.
+states are a list with one entry per layer — an Aaren ``ScanState`` carry
+or a softmax KV-cache dict — with the batch on axis 0 of every tensor but
+the cache's scalar ``index``.
 
 Entry points, as in the JAX package:
 
-* :func:`lm_apply`         — tokens -> logits (+ per-layer final carries);
+* :func:`lm_apply`         — tokens -> logits (+ per-layer decode states);
 * :func:`lm_loss`          — next-token cross-entropy, the training loss;
 * :func:`lm_decode_step`   — one token through every layer's carry;
 * :func:`lm_prefill_chunk` — advance every carry by one fixed-shape chunk
   (the serving hot path);
 * :func:`lm_state_init` / :func:`lm_state_select` — the empty state, and a
-  per-slot masked select used to reset or keep slots.
+  per-slot masked select of Aaren carries used to reset or keep slots (the
+  streaming engine serves Aaren models only).
 """
 
 from __future__ import annotations
@@ -63,13 +66,16 @@ def _logits(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def lm_apply(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
-             collect_state: bool = False,
+             collect_state: bool = False, cache_len: int | None = None,
              lengths: torch.Tensor | None = None):
     """tokens (B, N) -> (logits (B, N, vocab) f32, states or None).
 
     ``lengths`` (B,): true lengths of right-padded ragged rows — each row's
-    padded tail is masked in the scan, so the collected states are exactly
-    the states at each row's true length (ragged prefill).
+    padded tail is masked in the scan and the flash kernels, so the
+    collected states are exactly the states at each row's true length
+    (ragged prefill).  ``cache_len``: the slots of each softmax layer's KV
+    cache when ``collect_state`` (default N); without ``collect_state`` no
+    cache is built.
 
     ``cfg.remat == "block"`` checkpoints every layer of the full periods
     (``torch.utils.checkpoint``, non-reentrant), as the JAX package wraps
@@ -82,13 +88,18 @@ def lm_apply(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     n_periods, _ = cfg.layer_plan()
     n_remat = n_periods * len(cfg.pattern) if cfg.remat == "block" else 0
     x = apply_embed(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
+    if not collect_state:
+        cache_len = None
+    elif cache_len is None:
+        cache_len = tokens.shape[1]
+    kw = dict(cache_len=cache_len, lengths=lengths)
     states = []
     for i, (p, sig) in enumerate(zip(params["layers"], layer_sigs(cfg))):
         if i < n_remat and torch.is_grad_enabled():
-            x, st = checkpoint(blocks.block_sequence, p, x, sig, cfg,
-                               lengths=lengths, use_reentrant=False)
+            x, st = checkpoint(blocks.block_sequence, p, x, sig, cfg, **kw,
+                               use_reentrant=False)
         else:
-            x, st = blocks.block_sequence(p, x, sig, cfg, lengths=lengths)
+            x, st = blocks.block_sequence(p, x, sig, cfg, **kw)
         states.append(st)
     return _logits(cfg, params, x), (states if collect_state else None)
 
@@ -151,10 +162,13 @@ def lm_prefill_chunk(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     return _logits(cfg, params, x), new_states
 
 
-def lm_state_init(cfg: ArchConfig, batch: int, device="cuda") -> list:
-    """The empty (⊕-identity) decode state of every layer."""
+def lm_state_init(cfg: ArchConfig, batch: int, cache_len: int | None = None,
+                  device="cuda") -> list:
+    """The empty decode state of every layer: the ⊕-identity Aaren carry,
+    or an empty bf16 KV cache of ``cache_len`` slots (softmax layers need
+    one)."""
     dev = resolve_device(device)
-    return [blocks.block_state_init(sig, cfg, batch, dev)
+    return [blocks.block_state_init(sig, cfg, batch, cache_len, dev)
             for sig in layer_sigs(cfg)]
 
 

@@ -1,7 +1,8 @@
 """Inference engines — port of the core of ``repro.serving.engine``.
 
 * :func:`generate` — wave generation: prefill the whole batch (ragged
-  right-padded prompts allowed), then one-token decode steps.
+  right-padded prompts allowed), then one-token decode steps; Aaren
+  carries or softmax KV caches.
 * :class:`StreamingEngine` — chunked-prefill continuous batching over
   ``n_slots`` persistent decode slots.  Pure-Python bookkeeping decides what
   each slot feeds next; one fixed-shape step advances a *mixed* batch —
@@ -35,10 +36,16 @@ from repro_torch.models.lm import (
     lm_state_select,
 )
 from repro_torch.serving.sampler import greedy_sampler, request_seed
+from repro_torch.tree import tree_leaves
 
 
 def _device_of(params: dict) -> torch.device:
     return params["embed"]["table"].device
+
+
+def decode_state_bytes(states) -> int:
+    """Total bytes of a decode state (the paper's Fig. 5-left measure)."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(states))
 
 
 def _sample(sampler: Callable, logits: torch.Tensor, seed: int, rids,
@@ -56,13 +63,17 @@ def _sample(sampler: Callable, logits: torch.Tensor, seed: int, rids,
 @torch.inference_mode()
 def generate(api: ModelAPI, params: dict, prompts, max_new_tokens: int, *,
              sampler: Callable = greedy_sampler, seed: int = 0,
-             prompt_lengths=None):
+             cache_len: int | None = None, prompt_lengths=None):
     """Wave generation.  Returns (tokens (B, max_new) int64, final states).
 
-    ``prompts``: (B, P) token ids.  ``prompt_lengths``: optional (B,) true
+    ``prompts``: (B, P) token ids.  ``cache_len``: KV-cache slots of the
+    softmax layers (default P + max_new; a sliding-window layer keeps
+    ``min(window, cache_len)``).  ``prompt_lengths``: optional (B,) true
     lengths of right-padded ragged prompts — the prefill masks each row's
     padded tail, row ``i``'s first sample reads the logits at its true last
-    token, and decode continues from exact per-row states.
+    token, and decode continues from exact per-row states (KV caches carry
+    the prompt lengths, so the padded gap is masked and RoPE uses true
+    positions).
     """
     device = _device_of(params)
     prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
@@ -73,7 +84,18 @@ def generate(api: ModelAPI, params: dict, prompts, max_new_tokens: int, *,
     if max_new_tokens <= 0:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
     b, p = prompts.shape
-    batch = {"tokens": prompts}
+    if cache_len is None:
+        cache_len = p + max_new_tokens
+    pattern = api.cfg.effective_pattern()
+    if "attn" in pattern and cache_len < p + max_new_tokens:
+        # A wrapped global-attention ring silently overwrites the earliest
+        # context — a wrong answer (sliding-window layers cap their own
+        # cache at `window` by design).
+        raise ValueError(
+            f"cache_len={cache_len} < prompt {p} + max_new "
+            f"{max_new_tokens}: the global-attention ('attn') KV cache "
+            "must be non-wrapping — a wrapped ring silently drops context")
+    batch = {"tokens": prompts, "cache_len": cache_len}
     if prompt_lengths is not None:
         lens_np = np.asarray(prompt_lengths)
         if lens_np.shape != (b,):
@@ -81,6 +103,22 @@ def generate(api: ModelAPI, params: dict, prompts, max_new_tokens: int, *,
         if (lens_np < 1).any() or (lens_np > p).any():
             raise ValueError(f"prompt_lengths must lie in [1, {p}]; got "
                              f"{lens_np.tolist()}")
+        if cache_len < p + max_new_tokens:
+            # The ragged decode mask reads slots [0, prompt_lens) as the
+            # prompt; a wrapping ring would overwrite them.
+            raise ValueError(
+                f"ragged prefill needs a non-wrapping cache: cache_len="
+                f"{cache_len} < padded prompt {p} + max_new "
+                f"{max_new_tokens}")
+        if "attn_local" in pattern and api.cfg.window < p:
+            # window < P means a trailing-window ring, and ragged rows
+            # would need per-row ring indices.
+            raise NotImplementedError(
+                f"ragged prefill (prompt_lengths=) is not supported for "
+                f"'attn_local' layers with window ({api.cfg.window}) < "
+                f"padded prompt length ({p}): the trailing-window ring "
+                "cache needs per-row ring indices. Use window >= padded "
+                "prompt length, or pad each prompt separately.")
         batch["lengths"] = torch.as_tensor(lens_np, dtype=torch.int64,
                                            device=device)
     logits, states = api.prefill(params, batch)
@@ -150,6 +188,11 @@ class StreamingEngine:
                  chunk: int = 16, sampler: Callable = greedy_sampler,
                  seed: int = 0):
         pattern = api.cfg.effective_pattern()
+        if any(m in ("attn", "attn_local") for m in pattern):
+            raise ValueError(
+                "StreamingEngine requires position-free decode state "
+                "(aaren/rglru/ssd mixers only); use generate() for "
+                "KV-cache models.")
         if any(m != "aaren" for m in pattern):
             raise ValueError(
                 "the port's StreamingEngine serves all-Aaren models only; "
@@ -164,7 +207,8 @@ class StreamingEngine:
         self.sampler = sampler
         self.seed = seed
         self.device = _device_of(params)
-        self._init_states = lm_state_init(api.cfg, n_slots, self.device)
+        self._init_states = lm_state_init(api.cfg, n_slots,
+                                          device=self.device)
         self.states = self._init_states
         self.active: list[_Slot | None] = [None] * n_slots
         self.queue: list[_Slot] = []

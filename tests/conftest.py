@@ -8,3 +8,9 @@ import pytest
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the kernels have no CPU mode); "
+        "the test skips itself without one")

@@ -229,6 +229,6 @@ def test_entry_points_refuse_a_missing_card():
 
 
 def test_unsupported_blocks_raise():
-    cfg = smoke_config("phi3-mini-3.8b", attn_mode="softmax")
+    cfg = smoke_config("phi3-mini-3.8b", pattern=("rglru",))
     with pytest.raises(NotImplementedError, match="aaren"):
         build(cfg).init(0, device="cpu")

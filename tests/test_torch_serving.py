@@ -117,8 +117,11 @@ def test_engine_and_generate_validate_inputs(models):
                  prompt_lengths=[5, 1])
     softmax = build(smoke_config("phi3-mini-3.8b", attn_mode="softmax",
                                  **SMALL))
-    with pytest.raises(ValueError, match="all-Aaren"):
+    with pytest.raises(ValueError, match="KV-cache models"):
         StreamingEngine(softmax, params)
+    rglru = build(smoke_config("phi3-mini-3.8b", pattern=("rglru",), **SMALL))
+    with pytest.raises(ValueError, match="all-Aaren"):
+        StreamingEngine(rglru, params)
 
 
 @pytest.mark.parametrize("engine", ["streaming", "wave"])
