@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths — Aaren and the
-softmax baseline — on one CUDA card and check them.
+"""Drive the PyTorch port's serving and training paths — Aaren, packed
+Aaren and the softmax baseline — on one CUDA card and check them.
 
 Run from the root of the repository, on a machine with one NVIDIA H100:
 
@@ -18,11 +18,18 @@ own error):
    serving tick at the first and last layer, a small f32 model served on the
    card (kernels) and on the CPU (plain versions) with identical greedy
    tokens, and the same model's loss, every parameter gradient and three
-   train steps on the card against the CPU.  B3, B4 and B5 on edge shapes
-   (N = 1, odd N, N = 1000, ragged lengths with 0 and all-empty rows,
-   window, GQA, d from 32 to 256, f32 and bf16), and a small f32 softmax
+   train steps on the card against the CPU.  The segmented B1 and B2 of
+   packed rows on edge cases (a flag at token 0 with a carry, a carry with
+   no flags, single-token segments, every token flagged, a padding tail and
+   an all-padding row, N not a multiple of 32, extreme scores, packed rows
+   at the training N), and all-zero flags against no flags, bit for bit.
+   B3, B4 and B5 on edge shapes (N = 1, odd N, N = 1000, ragged lengths
+   with 0 and all-empty rows, window, GQA, d from 32 to 256, f32 and
+   bf16), and a small f32 softmax
    model's greedy tokens (plain and ragged prompts), loss, gradients and
-   three train steps on the card against the CPU.
+   three train steps on the card against the CPU.  A small f32 Aaren
+   model's packed loss and gradients on the card against the CPU, and its
+   packed loss against per-document evaluation.
 4. Full-width serving: ``phi3-mini-3.8b`` as registered (bf16, 32 layers,
    d_model 3072, 32 x 96 heads), random weights from a seed, 16 requests
    through the ``StreamingEngine`` (8 slots, chunk 16, prompts of 32-256
@@ -51,6 +58,13 @@ own error):
 4d. Full-width softmax serving: ``generate`` with a KV cache (B = 4,
    P = 128, 8 new tokens, cache_len 136), counts zeroed just before and
    read just after (32 B3 launches for the prefill; decode is plain torch).
+4e. Full-width packed training: phase 4b on ``PackedLMIterator`` batches
+   through ``run_train_loop(pack_sequences=True)``: counts zeroed just
+   before and read just after (64 segmented B1 and 32 segmented B2 launches
+   a step, every call carrying flags, no plain scan reached with a CUDA
+   tensor), captured layer-0/31 inputs against the plain versions, step
+   time, tokens/s and real tokens/s (x token_util), peak memory, a profile
+   and both segmented kernels' device time against their bounds.
 5. Result lines: the kernels' JSON, the card, and the contract line.
 """
 
@@ -120,12 +134,13 @@ def _scan_inputs(torch, np, r, n, d, carry, seed, pad_rows=(), spread=3.0):
     return [torch.from_numpy(a).cuda() for a in (s, v, m0, u0, w0)]
 
 
-def _compare_scan(torch, args, label) -> float:
-    """B1 (CUDA kernel) against its plain version on the same tensors."""
+def _compare_scan(torch, args, label, starts=None) -> float:
+    """B1 (CUDA kernel) against its plain version on the same tensors;
+    ``starts``: the segment-start flags of a packed call, or None."""
     from repro_torch.kernels.aaren_scan import aaren_scan, aaren_scan_plain
 
-    got = aaren_scan(*args)
-    want = aaren_scan_plain(*args)
+    got = aaren_scan(*args, segment_starts=starts)
+    want = aaren_scan_plain(*args, segment_starts=starts)
     torch.cuda.synchronize()
     _require(torch.equal(got[1], want[1]),
              f"{label}: m_f differs from the plain version")
@@ -142,14 +157,15 @@ def _compare_scan(torch, args, label) -> float:
     return err
 
 
-def _compare_scan_residuals(torch, args, label) -> float:
+def _compare_scan_residuals(torch, args, label, starts=None) -> float:
     """B1's residual form against its plain version, and against its own
     serving form: the residuals change none of the serving outputs."""
     from repro_torch.kernels.aaren_scan import aaren_scan, aaren_scan_plain
 
-    got = aaren_scan(*args, return_residuals=True)
-    serve = aaren_scan(*args)
-    want = aaren_scan_plain(*args, return_residuals=True)
+    got = aaren_scan(*args, segment_starts=starts, return_residuals=True)
+    serve = aaren_scan(*args, segment_starts=starts)
+    want = aaren_scan_plain(*args, segment_starts=starts,
+                            return_residuals=True)
     torch.cuda.synchronize()
     _require(all(torch.equal(a, b) for a, b in zip(got[:4], serve)),
              f"{label}: the residual form changed a serving output")
@@ -167,14 +183,14 @@ def _compare_scan_residuals(torch, args, label) -> float:
     return err
 
 
-def _bwd_inputs(torch, np, fwd_args, seed, zero_u=False):
+def _bwd_inputs(torch, np, fwd_args, seed, zero_u=False, starts=None):
     """B2's inputs: the plain forward's residuals on the card, cotangents
     from numpy, the seed (-m_f, g_w, -g_u)."""
     from repro_torch.kernels.aaren_scan import aaren_scan_plain
 
     s, v, m0, u0, w0 = fwd_args
-    o, m_f, _, _, m_all, u_all = aaren_scan_plain(s, v, m0, u0, w0,
-                                                  return_residuals=True)
+    o, m_f, _, _, m_all, u_all = aaren_scan_plain(
+        s, v, m0, u0, w0, segment_starts=starts, return_residuals=True)
     rng = np.random.default_rng(seed)
     r, n, d = v.shape
     g_o, g_u, g_w = (torch.from_numpy(rng.standard_normal(shape).astype(
@@ -185,16 +201,17 @@ def _bwd_inputs(torch, np, fwd_args, seed, zero_u=False):
     return [s, v, o, m_all, u_all, g_o, -m_f, g_w, -g_u]
 
 
-def _compare_bwd(torch, args, label) -> float:
+def _compare_bwd(torch, args, label, ends=None) -> float:
     """B2 (CUDA kernel) against its plain version on the same tensors, each
-    output scaled by max |plain| (the JAX suite's gradient bar)."""
+    output scaled by max |plain| (the JAX suite's gradient bar); ``ends``:
+    the segment-end flags of a packed call, or None."""
     from repro_torch.kernels.aaren_scan_bwd import (
         aaren_scan_bwd,
         aaren_scan_bwd_plain,
     )
 
-    got = aaren_scan_bwd(*args)
-    want = aaren_scan_bwd_plain(*args)
+    got = aaren_scan_bwd(*args, segment_ends=ends)
+    want = aaren_scan_bwd_plain(*args, segment_ends=ends)
     torch.cuda.synchronize()
     err = 0.0
     for name, a, b in zip(("ds", "dv", "n1", "g1", "b1"), got, want):
@@ -318,20 +335,24 @@ def _bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
                                    else "operations")
 
 
-def _b1_bound(r, n, d, residuals: bool):
-    """B1: each input read once, each output written once (f32); ~4 f32
-    operations per element of w per token plus ~5 per token of a row."""
+def _b1_bound(r, n, d, residuals: bool, flags: bool = False):
+    """B1: each input read once, each output written once (f32; the
+    segment flags one byte a token); ~4 f32 operations per element of w per
+    token plus ~5 per token of a row."""
     nbytes = 4 * r * n * (2 * d + 1) + 8 * r * (d + 2)
     if residuals:
         nbytes += 8 * r * n
+    if flags:
+        nbytes += r * n
     return _bound(nbytes, r * n * (4 * d + 5)) + (nbytes,)
 
 
-def _b2_bound(r, n, d):
-    """B2: s, m, u, v, o, g and the seed read once, ds, dv and the final
-    carry written once (f32); ~9 f32 operations per element of G per token
-    plus ~12 per token of a row."""
-    nbytes = 4 * r * n * (4 * d + 4) + 8 * r * (d + 2)
+def _b2_bound(r, n, d, flags: bool = False):
+    """B2: s, m, u, v, o, g, the seed (and the flags, one byte a token)
+    read once, ds, dv and the final carry written once (f32); ~9 f32
+    operations per element of G per token plus ~12 per token of a row."""
+    nbytes = 4 * r * n * (4 * d + 4) + 8 * r * (d + 2) + (r * n if flags
+                                                          else 0)
     return _bound(nbytes, r * n * (9 * d + 12)) + (nbytes,)
 
 
@@ -374,6 +395,90 @@ def phase3_kernels(torch, np) -> tuple[float, float]:
         bwd = _bwd_inputs(torch, np, args, seed=70 + i,
                           zero_u=label.startswith("u == 0"))
         b2_err = max(b2_err, _compare_bwd(torch, bwd, label))
+    return b1_err, b2_err
+
+
+# label, R, N, d, carry, score spread: the segmented B1/B2 edge cases
+SEG_CASES = [
+    ("docs + padding tail", 4, 23, 96, False, 3.0),
+    ("flag at token 0, carry", 4, 23, 96, True, 3.0),
+    ("carry, no flags", 4, 23, 96, True, 3.0),
+    ("every token flagged, carry", 4, 40, 96, True, 3.0),
+    ("single-token docs, all-padding row", 5, 33, 96, False, 3.0),
+    ("N % 32 != 0, random flags, carry", 7, 70, 128, True, 3.0),
+    ("extreme scores (+-80), docs", 6, 48, 96, True, 80.0),
+    ("packed rows at the training N", 8, 1024, 96, False, 3.0),
+]
+
+
+def _segmented_inputs(torch, np, label, r, n, d, carry, spread, seed):
+    """(B1's args on the card, (R, N) bool start flags) of one edge case;
+    padding positions are ⊕-identity leaves, as ``ops`` makes them."""
+    from repro_torch.core.scan_attention import NEG_INF
+
+    rng = np.random.default_rng(seed)
+    starts = np.zeros((r, n), bool)
+    pad = np.zeros((r, n), bool)
+    if label.startswith("docs"):
+        starts[:, [7, 15]] = True
+        pad[:, 20:] = True
+    elif label.startswith("flag at token 0"):
+        starts[:, [0, 9]] = True
+    elif label.startswith("every token"):
+        starts[:] = True
+    elif label.startswith("single-token"):
+        starts[:, [3, 4, 5, 11]] = True
+        pad[:, 28:] = True
+        pad[2], starts[2] = True, False
+    elif label.startswith("N % 32"):
+        starts = rng.random((r, n)) < 0.1
+        pad[1, 50:] = True
+    elif label.startswith("extreme"):
+        starts[:, [5, 6, 17, 40]] = True
+    elif label.startswith("packed rows"):
+        for row in range(r):       # documents of 8-400 tokens, then padding
+            at = 0
+            while True:
+                length = int(8 + 392 * rng.random() ** 3)
+                if at + length > n:
+                    break
+                starts[row, at] = at > 0
+                at += length
+            pad[row, at:] = True
+    starts &= ~pad
+    args = _scan_inputs(torch, np, r, n, d, carry, seed, spread=spread)
+    pad_t = torch.from_numpy(pad).cuda()
+    args[0][pad_t] = NEG_INF
+    args[1][pad_t] = 0.0
+    return args, torch.from_numpy(starts).cuda()
+
+
+def phase3_segmented_kernels(torch, np) -> tuple[float, float]:
+    """Segmented B1 (both forms) and B2 against their plain versions on the
+    edge cases, and all-zero flags against no flags, bit for bit.  Returns
+    (max |err| of segmented B1, of segmented B2)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.aaren_scan import aaren_scan
+    from repro_torch.kernels.aaren_scan_bwd import aaren_scan_bwd
+
+    b1_err = b2_err = 0.0
+    for i, case in enumerate(SEG_CASES):
+        label = f"segmented: {case[0]}"
+        args, starts = _segmented_inputs(torch, np, *case, seed=400 + i)
+        b1_err = max(b1_err, _compare_scan(torch, args, label, starts),
+                     _compare_scan_residuals(torch, args, label, starts))
+        bwd = _bwd_inputs(torch, np, args, seed=450 + i, starts=starts)
+        ends = ops._segment_ends(starts)
+        b2_err = max(b2_err, _compare_bwd(torch, bwd, label, ends))
+        zeros = torch.zeros_like(starts)
+        same = [torch.equal(a, b) for a, b in zip(
+            aaren_scan(*args, segment_starts=zeros, return_residuals=True),
+            aaren_scan(*args, return_residuals=True))]
+        same += [torch.equal(a, b) for a, b in zip(
+            aaren_scan_bwd(*bwd, segment_ends=zeros), aaren_scan_bwd(*bwd))]
+        _require(all(same), f"{label}: all-zero flags differ from no flags")
+    print("  segmented B1 and B2: all-zero flags give bit-identical outputs "
+          f"to the unflagged kernels on all {len(SEG_CASES)} cases")
     return b1_err, b2_err
 
 
@@ -746,6 +851,67 @@ def phase3_small_softmax(torch, np) -> None:
           "relative")
 
 
+def phase3_small_packed(torch, np) -> None:
+    """The small f32 Aaren model on packed documents: loss and every
+    gradient on the card (segmented kernels) against the CPU (plain
+    versions), and the packed loss against per-document evaluation."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.packing import pack_documents
+    from repro_torch.kernels.aaren_scan import aaren_scan
+    from repro_torch.kernels.aaren_scan_bwd import aaren_scan_bwd
+    from repro_torch.models.factory import build
+    from repro_torch.tree import tree_leaves
+
+    small = build(smoke_config(ARCH))
+    cpu_params = small.init(0, device="cpu")
+    rng = np.random.default_rng(120)
+    docs = [rng.integers(0, small.cfg.vocab, n)
+            for n in (30, 12, 1, 9, 6, 20, 5, 33)]
+    packed = pack_documents(docs, 48)
+    losses, grads = {}, {}
+    launches = (aaren_scan.n_launches, aaren_scan_bwd.n_launches)
+    for dev in ("cpu", "cuda"):
+        params = _to(cpu_params, dev)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in packed.items()}
+        loss, _ = small.loss(params, batch)
+        grads[dev] = torch.autograd.grad(loss, leaves)
+        losses[dev] = loss.item()
+    _require(aaren_scan.n_launches > launches[0]
+             and aaren_scan_bwd.n_launches > launches[1],
+             "small packed model: the card path launched no scan kernel")
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    _require(rel <= 1e-5, f"small packed model: loss on the card "
+             f"{losses['cuda']} != on the CPU {losses['cpu']}")
+    gerr = 0.0
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        err = (a.cpu() - b).abs().max().item() / max(b.abs().max().item(),
+                                                     1e-6)
+        _require(err <= TOL["rtol"], f"small packed model: a gradient "
+                 f"differs by {err:.3e} of its max between card and CPU")
+        gerr = max(gerr, err)
+    card_params = _to(cpu_params, "cuda")
+    total = count = 0
+    with torch.no_grad():
+        for doc in docs:
+            if doc.size < 2:     # no next-token target
+                continue
+            loss, _ = small.loss(card_params,
+                                 {"tokens": torch.from_numpy(doc[None]).cuda()})
+            total += loss.item() * (doc.size - 1)
+            count += doc.size - 1
+    per_doc = total / count
+    _require(abs(losses["cuda"] - per_doc) <= 1e-5, f"small packed model: "
+             f"packed loss {losses['cuda']} != per-document {per_doc}")
+    print(f"  small f32 packed model ({len(docs)} documents in "
+          f"{packed['tokens'].shape[0]} rows of 48): loss |card - CPU| / CPU "
+          f"= {rel:.2e}, |card - per-document| = "
+          f"{abs(losses['cuda'] - per_doc):.2e}; {len(grads['cpu'])} "
+          f"gradients within {gerr:.2e} of max |CPU|")
+
+
 def phase4_serving(torch, np, card: str):
     """Full-width serving.  Returns (B1 launches, B1 row of the kernels'
     JSON at the serving shape, max |err| over captured inputs)."""
@@ -879,10 +1045,40 @@ def phase4_serving(torch, np, card: str):
     return launches, row, err
 
 
-def phase4b_training(torch, np, card: str, cfg):
-    """Training of ``cfg`` (full width in :func:`main`).  Returns ({kernel:
-    launches}, {kernel: timing row at the training shape}, {kernel: max
-    |err| on captured inputs})."""
+class _PlainOnCard(Exception):
+    """A plain version was reached with a CUDA tensor on a main path."""
+
+
+def _forbid_plain_on_card():
+    """Make the scans' plain versions raise on CUDA tensors until the
+    returned undo is called: proof that a main path ran only kernels."""
+    from repro_torch.kernels import aaren_scan as b1_mod
+    from repro_torch.kernels import aaren_scan_bwd as b2_mod
+
+    saved = (b1_mod.aaren_scan_plain, b2_mod.aaren_scan_bwd_plain)
+
+    def guard(fn):
+        def wrapped(s, *args, **kw):
+            if s.is_cuda:
+                raise _PlainOnCard(f"{fn.__name__} reached with a CUDA tensor")
+            return fn(s, *args, **kw)
+        return wrapped
+
+    b1_mod.aaren_scan_plain = guard(saved[0])
+    b2_mod.aaren_scan_bwd_plain = guard(saved[1])
+
+    def undo():
+        b1_mod.aaren_scan_plain, b2_mod.aaren_scan_bwd_plain = saved
+    return undo
+
+
+def phase4b_training(torch, np, card: str, cfg, packed: bool = False):
+    """Training of ``cfg`` (full width in :func:`main`), on
+    ``SyntheticLMIterator`` batches or, with ``packed``, on
+    ``PackedLMIterator`` batches through ``pack_sequences=True`` and the
+    segmented kernels.  Returns ({kernel: launches}, {kernel: timing row at
+    the training shape}, {kernel: max |err| on captured inputs})."""
+    from repro_torch.data.packing import PackedLMIterator
     from repro_torch.data.synthetic import SyntheticLMIterator
     from repro_torch.kernels import ops
     from repro_torch.kernels.aaren_scan import aaren_scan, aaren_scan_plain
@@ -897,6 +1093,7 @@ def phase4b_training(torch, np, card: str, cfg):
     from repro_torch.train.state import init_train_state, make_train_step
 
     _require((cfg.remat, cfg.optimizer) == ("block", "adamw"), str(cfg))
+    what = "packed training" if packed else "training"
     api = build(cfg)
     n_params = count_params(api.specs())
     steps = TRAIN_WARM + TRAIN_MEASURED
@@ -908,51 +1105,63 @@ def phase4b_training(torch, np, card: str, cfg):
     torch.cuda.synchronize()
     print(f"  init {time.perf_counter() - ti:.2f} s: params + AdamW moments "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on card")
-    data = SyntheticLMIterator(vocab=cfg.vocab, seq_len=TRAIN_N,
-                               batch=TRAIN_B, seed=0)
+    data = (PackedLMIterator if packed else SyntheticLMIterator)(
+        vocab=cfg.vocab, seq_len=TRAIN_N, batch=TRAIN_B, seed=0)
 
-    # Capture B1's and B2's inputs at layers 0 and 31 in the first step:
-    # B1 runs forward for layers 0..31, then the remat recompute for 31..0;
-    # B2 runs for layers 31..0.  Cloning launches nothing.
+    # Capture B1's and B2's inputs (and flags) at layers 0 and 31 in the
+    # first step: B1 runs forward for layers 0..31, then the remat recompute
+    # for 31..0; B2 runs for layers 31..0.  Cloning launches nothing.  Every
+    # call of the run is counted, and those carrying segment flags apart.
     last = cfg.n_layers - 1
     want_calls = {"b1": {0: 0, last: last}, "b2": {last: 0, 0: last}}
     calls = {"b1": 0, "b2": 0}
+    flagged = {"b1": 0, "b2": 0}
     captured = {"b1": {}, "b2": {}}
     capturing = {"on": True}
     real_scan, real_bwd = ops.aaren_scan, ops.aaren_scan_bwd
 
-    def spy(kind, fn):
+    def spy(kind, fn, flag_key):
         def wrapped(*args, **kw):
+            flags = kw.get(flag_key)
+            flagged[kind] += flags is not None
             if capturing["on"]:
                 for layer, idx in want_calls[kind].items():
                     if calls[kind] == idx:
-                        captured[kind][layer] = [a.clone() for a in args]
+                        captured[kind][layer] = (
+                            [a.clone() for a in args],
+                            None if flags is None else flags.clone())
                 calls[kind] += 1
             return fn(*args, **kw)
         return wrapped
 
     finite = {"ok": True}
-    losses = []
+    losses, utils = [], []
 
     def on_log(step, m):
         capturing["on"] = False
         finite["ok"] &= bool(np.isfinite(m["loss"])
                              and np.isfinite(m["grad_norm"]))
         losses.append(m["loss"])
+        utils.append(m.get("token_util", 1.0))
+        util = (f" token_util {m['token_util']:.4f}" if "token_util" in m
+                else "")
         print(f"  step {step}: loss {m['loss']:.4f} grad_norm "
-              f"{m['grad_norm']:.4f} {m['step_time_s'] * 1e3:.1f} ms")
+              f"{m['grad_norm']:.4f} {m['step_time_s'] * 1e3:.1f} ms{util}")
 
-    ops.aaren_scan = spy("b1", real_scan)
-    ops.aaren_scan_bwd = spy("b2", real_bwd)
+    ops.aaren_scan = spy("b1", real_scan, "segment_starts")
+    ops.aaren_scan_bwd = spy("b2", real_bwd, "segment_ends")
+    undo = _forbid_plain_on_card()
     torch.cuda.reset_peak_memory_stats()
     # The main path: counts from zero, read right after.
     aaren_scan.n_launches = aaren_scan_bwd.n_launches = 0
     try:
-        result = run_train_loop(step_fn, state, data,
-                                LoopConfig(total_steps=steps, log_every=1),
-                                on_log=on_log)
+        result = run_train_loop(
+            step_fn, state, data,
+            LoopConfig(total_steps=steps, log_every=1, pack_sequences=packed),
+            on_log=on_log)
     finally:
         ops.aaren_scan, ops.aaren_scan_bwd = real_scan, real_bwd
+        undo()
     launches = {"aaren_scan": aaren_scan.n_launches,
                 "aaren_scan_bwd": aaren_scan_bwd.n_launches}
     peak = torch.cuda.max_memory_allocated()
@@ -965,25 +1174,39 @@ def phase4b_training(torch, np, card: str, cfg):
     want_b1, want_b2 = 2 * cfg.n_layers * steps, cfg.n_layers * steps
     _require(launches == {"aaren_scan": want_b1, "aaren_scan_bwd": want_b2},
              f"launches {launches}, want B1 {want_b1} and B2 {want_b2}")
-    print(f"  launches on the training path over {steps} steps: B1 "
-          f"{launches['aaren_scan']} = 2 x {cfg.n_layers} x {steps}, B2 "
-          f"{launches['aaren_scan_bwd']} = {cfg.n_layers} x {steps}")
+    want_flagged = ({"b1": want_b1, "b2": want_b2} if packed
+                    else {"b1": 0, "b2": 0})
+    _require(flagged == want_flagged, f"calls with segment flags {flagged}, "
+             f"want {want_flagged}")
+    form = "segmented " if packed else ""
+    print(f"  launches on the {what} path over {steps} steps: {form}B1 "
+          f"{launches['aaren_scan']} = 2 x {cfg.n_layers} x {steps}, {form}B2 "
+          f"{launches['aaren_scan_bwd']} = {cfg.n_layers} x {steps}; no plain "
+          "scan reached a CUDA tensor")
 
     errs = {"aaren_scan": 0.0, "aaren_scan_bwd": 0.0}
     for layer in (0, last):
+        (b1_args, starts), (b2_args, ends) = (captured["b1"][layer],
+                                              captured["b2"][layer])
+        _require((starts is not None) == packed and (ends is not None)
+                 == packed, f"layer {layer}: flags {starts}, {ends}")
+        label = f"{what} step, layer {layer}"
         errs["aaren_scan"] = max(errs["aaren_scan"], _compare_scan_residuals(
-            torch, captured["b1"][layer], f"training step, layer {layer}"))
+            torch, b1_args, label, starts))
         errs["aaren_scan_bwd"] = max(errs["aaren_scan_bwd"], _compare_bwd(
-            torch, captured["b2"][layer], f"training step, layer {layer}"))
+            torch, b2_args, label, ends))
 
     step_s = [m["step_time_s"] for _, m in result.history[TRAIN_WARM:]]
     step_ms = statistics.median(step_s) * 1e3
     tokens = TRAIN_B * TRAIN_N
+    util = statistics.mean(utils[TRAIN_WARM:])
     mfu = 6 * n_params * tokens / (step_ms / 1e3) / BF16_DENSE_FLOPS
     each = ", ".join(f"{s * 1e3:.1f}" for s in step_s)
-    print(f"  training B={TRAIN_B} N={TRAIN_N}: step median {step_ms:.3f} ms "
+    print(f"  {what} B={TRAIN_B} N={TRAIN_N}: step median {step_ms:.3f} ms "
           f"over {len(step_s)} steps ({each} ms), "
-          f"{tokens / (step_ms / 1e3):.1f} tokens/s  [{card}]")
+          f"{tokens / (step_ms / 1e3):.1f} tokens/s, real tokens/s "
+          f"{tokens * util / (step_ms / 1e3):.1f} (token_util {util:.4f})"
+          f"  [{card}]")
     print(f"  peak memory allocated {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)  [{card}]")
     print(f"  MFU {mfu:.2%}: 6 x {n_params} params x {tokens} tokens per "
@@ -999,32 +1222,36 @@ def phase4b_training(torch, np, card: str, cfg):
     def one_step():
         train_state["state"], _ = step_fn(train_state["state"], batch)
 
-    _print_profile(_device_profile(torch, one_step, 1), "train step", card,
+    _print_profile(_device_profile(torch, one_step, 1), f"{what} step", card,
                    top=16)
 
     # Both kernels at the training shape, on the captured layer-0 inputs.
     rows = {}
-    s, v, m0, u0, w0 = captured["b1"][0]
+    (s, v, m0, u0, w0), starts = captured["b1"][0]
     r, n = s.shape
     d = v.shape[-1]
     times = _kernel_times(
-        torch, lambda: aaren_scan(s, v, m0, u0, w0, return_residuals=True),
-        lambda: aaren_scan_plain(s, v, m0, u0, w0, return_residuals=True),
-        20, 3)
-    rows["aaren_scan"] = times + _b1_bound(r, n, d, residuals=True)
-    serve_form_ms = _graph_ms(torch, lambda: aaren_scan(s, v, m0, u0, w0), 20)
-    print(f"  aaren_scan serving form (no residuals) at the training shape: "
-          f"device {serve_form_ms * 1e3:.2f} us  [{card}]")
-    bwd = captured["b2"][0]
-    times = _kernel_times(torch, lambda: aaren_scan_bwd(*bwd),
-                          lambda: aaren_scan_bwd_plain(*bwd), 20, 3)
-    rows["aaren_scan_bwd"] = times + _b2_bound(r, n, d)
+        torch, lambda: aaren_scan(s, v, m0, u0, w0, segment_starts=starts,
+                                  return_residuals=True),
+        lambda: aaren_scan_plain(s, v, m0, u0, w0, segment_starts=starts,
+                                 return_residuals=True), 20, 3)
+    rows["aaren_scan"] = times + _b1_bound(r, n, d, residuals=True,
+                                           flags=packed)
+    serve_form_ms = _graph_ms(torch, lambda: aaren_scan(
+        s, v, m0, u0, w0, segment_starts=starts), 20)
+    print(f"  {form}aaren_scan serving form (no residuals) at the training "
+          f"shape: device {serve_form_ms * 1e3:.2f} us  [{card}]")
+    bwd, ends = captured["b2"][0]
+    times = _kernel_times(
+        torch, lambda: aaren_scan_bwd(*bwd, segment_ends=ends),
+        lambda: aaren_scan_bwd_plain(*bwd, segment_ends=ends), 20, 3)
+    rows["aaren_scan_bwd"] = times + _b2_bound(r, n, d, flags=packed)
     out = {}
     for name, (ms, call_ms, plain_ms, plain_call_ms, bound_ms, bound_by,
                nbytes) in rows.items():
-        print(f"  {name} at the training shape R={r} N={n} d={d}: device "
-              f"{ms * 1e3:.2f} us (eager call {call_ms * 1e3:.2f} us), plain "
-              f"device {plain_ms * 1e3:.2f} us (eager call "
+        print(f"  {form}{name} at the training shape R={r} N={n} d={d}: "
+              f"device {ms * 1e3:.2f} us (eager call {call_ms * 1e3:.2f} us), "
+              f"plain device {plain_ms * 1e3:.2f} us (eager call "
               f"{plain_call_ms * 1e3:.2f} us), bound {bound_ms * 1e3:.3f} us "
               f"by {bound_by} ({nbytes} B), {ms / bound_ms:.1f}x the bound"
               f"  [{card}]")
@@ -1252,9 +1479,11 @@ def main() -> int:
     # 3. Kernels against their plain versions --------------------------------
     _phase("3 kernels against plain versions", t0)
     b1_err, b2_err = phase3_kernels(torch, np)
+    seg_b1_err, seg_b2_err = phase3_segmented_kernels(torch, np)
     flash_errs = phase3_flash_kernels(torch, np)
     phase3_small_model(torch, np)
     phase3_small_softmax(torch, np)
+    phase3_small_packed(torch, np)
 
     # 4. Full-width serving ------------------------------------------------
     _phase("4 full-width serving", t0)
@@ -1289,6 +1518,15 @@ def main() -> int:
     # 4d. Full-width softmax generate with a KV cache ----------------------
     _phase("4d full-width softmax generate", t0)
     gen_b3 = phase4d_softmax_generate(torch, np, card, soft_cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4e. Full-width packed training (segmented B1 and B2) ------------------
+    _phase("4e full-width packed training", t0)
+    packed_launches, packed_rows, errs = phase4b_training(torch, np, card,
+                                                          cfg, packed=True)
+    seg_b1_err = max(seg_b1_err, errs["aaren_scan"])
+    seg_b2_err = max(seg_b2_err, errs["aaren_scan_bwd"])
 
     # 5. Results ---------------------------------------------------------------
     _phase("5 results", t0)
@@ -1312,6 +1550,18 @@ def main() -> int:
          "max_abs_err": b2_err, **train_rows["aaren_scan_bwd"],
          "library_ms": None},
     ]
+    for name, line, err in (("aaren_scan", "aaren_scan.py:190", seg_b1_err),
+                            ("aaren_scan_bwd", "aaren_scan_bwd.py:183",
+                             seg_b2_err)):
+        kernels.append({
+            "name": f"{name}_segmented", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{line} (segment flags)",
+            "launches": packed_launches[name],
+            "launches_by_path": {"serve": 0,
+                                 "train_packed": packed_launches[name]},
+            "max_abs_err": err, **packed_rows[name], "library_ms": None,
+            "shape": "packed training, layer 0 (residual form for B1)"})
     flash_meta = (
         ("flash_attention", "flash_fwd.cu", ":244",
          {"serve": gen_b3, "train": soft_launches["flash_attention"]}),

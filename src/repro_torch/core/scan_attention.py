@@ -68,6 +68,43 @@ def mask_to_identity(s: torch.Tensor, v: torch.Tensor, mask: torch.Tensor):
     return s, v
 
 
+def segment_starts_from_ids(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Boolean start flags from a packed row's segment ids (..., N).
+
+    Position ``i`` starts a segment iff its id differs from position
+    ``i-1``'s and is a real segment (``id != 0``: 0 is the padding id,
+    whose positions are ⊕-identity leaves and never reset).  Position 0 is
+    not flagged: a reset there would cut off the incoming carry, which is
+    the identity for a fresh packed row and a real state when a chunked
+    caller seeds the row's first document with its scanned prefix.
+    """
+    prev = torch.cat([segment_ids[..., :1], segment_ids[..., :-1]], dim=-1)
+    return (segment_ids != prev) & (segment_ids != 0)
+
+
+def combine_segmented(lhs, rhs):
+    """Segmented ⊕ on flagged states ``(m, u, w, f)`` (⊕ plus a reset flag).
+
+    ``f > 0`` marks "this operand's window contains a segment start".
+    ``rhs`` is the later window: if it contains a start, ``lhs`` is dropped
+    (the scan restarts at the boundary); otherwise this is :func:`combine`.
+    The flag composes by OR.  Associative (Blelloch's segmented scan).
+    """
+    m_l, u_l, w_l, f_l = lhs
+    m_r, u_r, w_r, f_r = rhs
+    keep = f_r == 0.0
+    m = torch.where(keep, torch.maximum(m_l, m_r), m_r)
+    alpha = torch.where(keep, torch.exp(m_l - m), 0.0)
+    beta = torch.exp(m_r - m)  # == 1 where the reset pinned m to m_r
+    if alpha.ndim < w_l.ndim:
+        alpha_w, beta_w = alpha[..., None], beta[..., None]
+    else:
+        alpha_w, beta_w = alpha, beta
+    u = u_l * alpha + u_r * beta
+    w = w_l * alpha_w + w_r * beta_w
+    return m, u, w, torch.maximum(f_l, f_r)
+
+
 def combine(lhs: ScanState, rhs: ScanState) -> ScanState:
     """The paper's associative operator ``⊕``; ``lhs`` is the earlier set.
 
@@ -134,3 +171,34 @@ def prefix_scan_states(s: torch.Tensor, v: torch.Tensor) -> ScanState:
     and w (..., N, d): :func:`prefix_scan` of the leaves ``(s_i, 1, v_i)``.
     """
     return prefix_scan(make_leaf_state(s.float(), v.float()))
+
+
+def prefix_scan_segmented(leaves: ScanState, flags: torch.Tensor):
+    """All-prefix states of a row of leaves, restarting at every flag.
+
+    ``leaves``: m,u (..., N), w (..., N, d); ``flags`` (..., N) bool/float,
+    nonzero at the first token of each segment.  The Hillis–Steele scan of
+    :func:`prefix_scan` on :func:`combine_segmented`.  Returns ``(states,
+    seen)``: position ``i`` accumulates only its own segment's prefix, and
+    ``seen`` (..., N) is 1.0 once a flag has occurred at or before ``i``.
+    """
+    m, u, w = leaves.m[..., None], leaves.u[..., None], leaves.w
+    f = flags.to(m.dtype)[..., None]
+    n = m.shape[-2]
+    off = 1
+    while off < n:
+        older = (_shifted(m, off, NEG_INF, -2), _shifted(u, off, 0.0, -2),
+                 _shifted(w, off, 0.0, -2), _shifted(f, off, 0.0, -2))
+        m, u, w, f = combine_segmented(older, (m, u, w, f))
+        off *= 2
+    return ScanState(m=m[..., 0], u=u[..., 0], w=w), f[..., 0]
+
+
+def prefix_scan_states_segmented(s: torch.Tensor, v: torch.Tensor,
+                                 segment_starts: torch.Tensor):
+    """Per-segment all-prefix states in f32: the scan restarts at every
+    start flag.  Returns ``(states, seen)`` as :func:`prefix_scan_segmented`
+    (``seen`` gates an incoming carry: it folds only into positions before
+    the first reset)."""
+    return prefix_scan_segmented(make_leaf_state(s.float(), v.float()),
+                                 segment_starts)

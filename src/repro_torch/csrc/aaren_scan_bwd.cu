@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas TPU kernel `aaren_scan_bwd` in
 // src/repro/kernels/aaren_scan_bwd.py (wrapper at :183, pallas_call at :264,
-// body `_aaren_scan_bwd_kernel`, within-block `_block_suffix_scan`).  Its
-// non-segmented form: the analytic VJP of the forward scan from the forward's
+// body `_aaren_scan_bwd_kernel`, within-block `_block_suffix_scan`), plain
+// and segmented: the analytic VJP of the forward scan from the forward's
 // residuals (o, m_i, u_i) and the output cotangent g, for every row r of R
 //
 //   G_j = sum_{i>=j} g_i / U_i,   B_j = sum_{i>=j} (g_i . o_i) / U_i
@@ -29,14 +29,27 @@
 //   e = exp(s_j + n);  ds_j = e (v_j . G^ - B^);  dv_j = e G^
 //
 // n is the suffix max of -m, which is -m_j because m is non-decreasing, so
-// e <= 1 and nothing overflows.  The two dot products per token are warp
+// e <= 1 and nothing overflows.
+//
+// Segments.  Packed rows pass `ends` ((R, N) uint8, 1 at the last token of
+// each segment that has a successor: the forward's start flags shifted left
+// one).  The fold restarts at every end flag, as `_block_suffix_scan`'s
+// segmented branch drops the later half of a window that holds an end: at a
+// flagged token the running state is dropped and the leaf becomes the state
+// (n' = -m_j, a = 0, bl = 1), a select on the same expressions, so a null
+// `ends` computes bit-identical outputs.  The seed (-m_f, g_w, -g_u) thus
+// reaches only the last segment and the trailing padding, and (n1, g1, b1)
+// covers only the first segment, the only span the carry-in reached.  Within
+// a segment m is non-decreasing, so e <= 1 still holds.  The flag travels
+// with the token's other loads, so the one-token lookahead is unchanged.  The two dot products per token are warp
 // reductions (__shfl_xor_sync).  The next token's loads are issued before
 // the current token's arithmetic, so one token's load latency overlaps the
 // previous token's work; ds is staged one token per lane and written 32 at
 // a time.  expf (not __expf) keeps the kernel within 1e-4 of the f32 oracle.
 //
 // Bound.  The kernel reads s, m, u, v, o, g and the seed once and writes ds,
-// dv and the final carry once: 4*R*N*(4d+4) + 8*R*(d+2) bytes.  At the
+// dv and the final carry once: 4*R*N*(4d+4) + 8*R*(d+2) bytes, plus R*N
+// with the flags.  At the
 // training shape of phi3-mini-3.8b (R = 4 * 32 = 128, N = 1024, d = 96)
 // that is 203 MB, about 61 us at 3.35 TB/s; the arithmetic is ~10*R*N*d
 // flops, far below the f32 rate.  The walk over N is sequential per warp and
@@ -58,6 +71,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 struct Token {
   float s, m, u;
+  bool end;
   float g[AAREN_BWD_MAX_PER_LANE];
   float o[AAREN_BWD_MAX_PER_LANE];
   float v[AAREN_BWD_MAX_PER_LANE];
@@ -65,9 +79,10 @@ struct Token {
 
 __device__ __forceinline__ void load_token(
     Token& t, const float* s_row, const float* m_row, const float* u_row,
-    const float* v_row, const float* o_row, const float* g_row, int j, int d,
-    int lane) {
+    const float* v_row, const float* o_row, const float* g_row,
+    const unsigned char* f_row, int j, int d, int lane) {
   t.s = s_row[j];
+  t.end = f_row != nullptr && f_row[j] != 0;
   t.m = m_row[j];
   t.u = u_row[j];
 #pragma unroll
@@ -85,7 +100,8 @@ __global__ void aaren_scan_bwd_kernel(
     const float* __restrict__ o, const float* __restrict__ m,
     const float* __restrict__ u, const float* __restrict__ g,
     const float* __restrict__ n0, const float* __restrict__ g0,
-    const float* __restrict__ b0, float* __restrict__ ds,
+    const float* __restrict__ b0, const unsigned char* __restrict__ ends,
+    float* __restrict__ ds,
     float* __restrict__ dv, float* __restrict__ n1, float* __restrict__ g1,
     float* __restrict__ b1, int R, int N, int d) {
   const int lane = threadIdx.x & 31;
@@ -109,16 +125,18 @@ __global__ void aaren_scan_bwd_kernel(
   const float* v_row = v + row;
   const float* o_row = o + row;
   const float* g_row = g + row;
+  const unsigned char* f_row = ends == nullptr ? nullptr : ends + r * N;
   float* ds_row = ds + r * N;
   float* dv_row = dv + row;
 
   Token cur, nxt;
-  load_token(cur, s_row, m_row, u_row, v_row, o_row, g_row, N - 1, d, lane);
+  load_token(cur, s_row, m_row, u_row, v_row, o_row, g_row, f_row, N - 1, d,
+             lane);
   float ds_keep = 0.f;  // ds of token (j & ~31) + lane
   for (int j = N - 1; j >= 0; --j) {
     if (j > 0)
-      load_token(nxt, s_row, m_row, u_row, v_row, o_row, g_row, j - 1, d,
-                 lane);
+      load_token(nxt, s_row, m_row, u_row, v_row, o_row, g_row, f_row, j - 1,
+                 d, lane);
 
     const float inv_u = cur.u == 0.f ? 0.f : 1.f / cur.u;
     float go = 0.f;
@@ -127,9 +145,9 @@ __global__ void aaren_scan_bwd_kernel(
     go = warp_sum(go);
 
     const float ln = -cur.m;
-    const float nn = fmaxf(n, ln);
-    const float a = expf(n - nn);    // weight of the carry (later tokens)
-    const float bl = expf(ln - nn);  // weight of the leaf
+    const float nn = cur.end ? ln : fmaxf(n, ln);
+    const float a = cur.end ? 0.f : expf(n - nn);  // weight of later tokens
+    const float bl = expf(ln - nn);                // weight of the leaf
     b = b * a + (go * inv_u) * bl;
     float vg = 0.f;
 #pragma unroll
@@ -170,11 +188,13 @@ extern "C" {
 int aaren_scan_bwd_max_d() { return 32 * AAREN_BWD_MAX_PER_LANE; }
 
 // Launches on `stream`; does not synchronise and allocates nothing.
+// `ends` is null (unpacked rows) or (R, N) uint8 segment-end flags.
 // Returns cudaGetLastError() after the launch (0 on success).
 int aaren_scan_bwd(const float* s, const float* v, const float* o,
                    const float* m, const float* u, const float* g,
                    const float* n0, const float* g0, const float* b0,
-                   float* ds, float* dv, float* n1, float* g1, float* b1,
+                   const unsigned char* ends, float* ds, float* dv,
+                   float* n1, float* g1, float* b1,
                    int R, int N, int d, void* stream) {
   if (R <= 0 || N <= 0 || d <= 0 || d > 32 * AAREN_BWD_MAX_PER_LANE)
     return (int)cudaErrorInvalidValue;
@@ -182,8 +202,8 @@ int aaren_scan_bwd(const float* s, const float* v, const float* o,
       (R + AAREN_BWD_ROWS_PER_BLOCK - 1) / AAREN_BWD_ROWS_PER_BLOCK;
   aaren_scan_bwd_kernel<<<blocks, 32 * AAREN_BWD_ROWS_PER_BLOCK, 0,
                           (cudaStream_t)stream>>>(s, v, o, m, u, g, n0, g0,
-                                                  b0, ds, dv, n1, g1, b1, R,
-                                                  N, d);
+                                                  b0, ends, ds, dv, n1, g1,
+                                                  b1, R, N, d);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
 """Aaren prefix-scan attention, forward: the CUDA kernel, its plain version
 and the wrapper that picks between them by device.
 
-Port of the Pallas TPU kernel ``repro.kernels.aaren_scan.aaren_scan``
-(non-segmented, with carry).  Per row of ``R = B·H`` it computes every
+Port of the Pallas TPU kernel ``repro.kernels.aaren_scan.aaren_scan``,
+with carry, plain and segmented.  Per row of ``R = B·H`` it computes every
 causal prefix-softmax output
 
     o_i = Σ_{j<=i} exp(s_j - m_i) v_j / Σ_{j<=i} exp(s_j - m_i)
@@ -12,7 +12,10 @@ carry so chunked prefill and streaming decode continue where it stopped.
 With ``return_residuals`` it also returns the running max and denominator
 ``(m_i, u_i)`` after every token, which the backward
 (``kernels/aaren_scan_bwd.py``) consumes; serving leaves the flag off and
-writes nothing extra.
+writes nothing extra.  Packed rows pass ``segment_starts`` (R, N) bool: the
+scan resets to the ⊕ identity at every flagged token, so the carry-in
+reaches only the positions before a row's first flag and the final carry
+is the last segment's state.
 
 * :func:`aaren_scan_plain` — prefix scan + carry fold + guarded readout in
   plain torch, the counterpart of the JAX package's ``ops._aaren_jnp``.
@@ -33,19 +36,30 @@ import torch
 from repro_torch.core.scan_attention import (
     ScanState,
     combine,
+    combine_segmented,
     prefix_scan_states,
+    prefix_scan_states_segmented,
     readout,
 )
 from repro_torch.kernels import build
 
 
-def aaren_scan_plain(s, v, m0, u0, w0, *, return_residuals=False):
+def aaren_scan_plain(s, v, m0, u0, w0, *, segment_starts=None,
+                     return_residuals=False):
     """(o (R,N,d), m_f (R,1), u_f (R,1), w_f (R,d)) in plain torch; with
     ``return_residuals`` also (m (R,N), u (R,N))."""
-    states = prefix_scan_states(s, v)             # m,u: (R, N); w: (R, N, d)
+    if segment_starts is None:
+        states = prefix_scan_states(s, v)         # m,u: (R, N); w: (R, N, d)
+        seen = None
+    else:
+        states, seen = prefix_scan_states_segmented(s, v, segment_starts)
     carry = ScanState(m=m0.expand_as(states.m), u=u0.expand_as(states.u),
                       w=w0[:, None, :].expand_as(states.w))
-    total = combine(carry, states)
+    if seen is None:
+        total = combine(carry, states)
+    else:  # the carry folds only into positions before the first reset
+        total = ScanState(*combine_segmented(
+            (*carry, torch.zeros_like(seen)), (*states, seen))[:3])
     out = (readout(total), total.m[:, -1:].contiguous(),
            total.u[:, -1:].contiguous(), total.w[:, -1, :].contiguous())
     if return_residuals:
@@ -53,7 +67,7 @@ def aaren_scan_plain(s, v, m0, u0, w0, *, return_residuals=False):
     return out
 
 
-def _check(s, v, m0, u0, w0):
+def _check(s, v, m0, u0, w0, segment_starts):
     if s.ndim != 2 or v.ndim != 3:
         raise ValueError(f"aaren_scan wants s (R, N) and v (R, N, d); got "
                          f"{tuple(s.shape)} and {tuple(v.shape)}")
@@ -73,12 +87,18 @@ def _check(s, v, m0, u0, w0):
             raise ValueError(f"aaren_scan: {name} is not contiguous")
     if r == 0 or n == 0 or d == 0:
         raise ValueError(f"aaren_scan: empty shape R={r}, N={n}, d={d}")
+    f = segment_starts
+    if f is not None and (tuple(f.shape) != (r, n) or f.dtype != torch.bool
+                          or f.device != s.device or not f.is_contiguous()):
+        raise ValueError(f"aaren_scan: segment_starts must be a contiguous "
+                         f"bool ({r}, {n}) tensor on {s.device}; got "
+                         f"{f.dtype} {tuple(f.shape)} on {f.device}")
 
 
 @functools.cache
 def _library():
     lib = build.load("aaren_scan")
-    lib.aaren_scan_fwd.argtypes = ([ctypes.c_void_p] * 11
+    lib.aaren_scan_fwd.argtypes = ([ctypes.c_void_p] * 12
                                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.aaren_scan_fwd.restype = ctypes.c_int
     lib.aaren_scan_max_d.argtypes = []
@@ -88,7 +108,7 @@ def _library():
     return lib
 
 
-def _launch(s, v, m0, u0, w0, return_residuals):
+def _launch(s, v, m0, u0, w0, segment_starts, return_residuals):
     lib = _library()
     r, n = s.shape
     d = v.shape[-1]
@@ -101,12 +121,15 @@ def _launch(s, v, m0, u0, w0, return_residuals):
     res = ((torch.empty_like(s), torch.empty_like(s)) if return_residuals
            else ())
     res_ptrs = [t.data_ptr() for t in res] or [None, None]
+    # A bool tensor's bytes are the kernel's uint8 flags (0 or 1).
+    starts_ptr = (None if segment_starts is None
+                  else segment_starts.data_ptr())
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream(s.device).cuda_stream
         err = lib.aaren_scan_fwd(
             s.data_ptr(), v.data_ptr(), m0.data_ptr(), u0.data_ptr(),
-            w0.data_ptr(), o.data_ptr(), m_f.data_ptr(), u_f.data_ptr(),
-            w_f.data_ptr(), *res_ptrs, r, n, d, stream)
+            w0.data_ptr(), starts_ptr, o.data_ptr(), m_f.data_ptr(),
+            u_f.data_ptr(), w_f.data_ptr(), *res_ptrs, r, n, d, stream)
     if err:
         raise RuntimeError("aaren_scan kernel launch failed: "
                            + lib.aaren_scan_error_string(err).decode())
@@ -114,21 +137,25 @@ def _launch(s, v, m0, u0, w0, return_residuals):
     return (o, m_f, u_f, w_f) + res
 
 
-def aaren_scan(s, v, m0, u0, w0, *, return_residuals=False):
+def aaren_scan(s, v, m0, u0, w0, *, segment_starts=None,
+               return_residuals=False):
     """All-prefix Aaren attention outputs + final carry (+ bwd residuals).
 
     s: (R, N); v: (R, N, d); m0/u0: (R, 1); w0: (R, d) — all float32,
     contiguous, on one device (``NEG_INF``/0/0 carry for a fresh sequence).
+    ``segment_starts``: optional (R, N) contiguous bool flags, True at the
+    first token of each packed segment (never at padding).
     Returns (o: (R, N, d), m_f: (R, 1), u_f: (R, 1), w_f: (R, d)); with
     ``return_residuals`` also (m: (R, N), u: (R, N)), the running max and
     softmax denominator after every token.
     """
-    _check(s, v, m0, u0, w0)
+    _check(s, v, m0, u0, w0, segment_starts)
     if s.device.type == "cpu":
         return aaren_scan_plain(s, v, m0, u0, w0,
+                                segment_starts=segment_starts,
                                 return_residuals=return_residuals)
     if s.device.type == "cuda":
-        return _launch(s, v, m0, u0, w0, return_residuals)
+        return _launch(s, v, m0, u0, w0, segment_starts, return_residuals)
     raise ValueError(f"aaren_scan runs on cpu or cuda, not {s.device}")
 
 

@@ -1,8 +1,8 @@
 """Aaren prefix-scan attention, backward: the CUDA kernel, its plain version
 and the wrapper that picks between them by device.
 
-Port of the Pallas TPU kernel ``repro.kernels.aaren_scan_bwd.aaren_scan_bwd``
-(non-segmented).  From the forward's residuals ``(o, m_i, u_i)`` and the
+Port of the Pallas TPU kernel ``repro.kernels.aaren_scan_bwd.aaren_scan_bwd``,
+plain and segmented.  From the forward's residuals ``(o, m_i, u_i)`` and the
 output cotangent ``g`` it computes, per row of ``R = B·H``,
 
     ds_j = e^{s_j - M_j} (v_j · G_j - B_j),   dv_j = e^{s_j - M_j} G_j
@@ -11,7 +11,10 @@ output cotangent ``g`` it computes, per row of ``R = B·H``,
 as a right-to-left scan of the paper's ⊕ on ``(n = -M, Ĝ, B̂)`` seeded with
 the reverse carry ``(n0, g0, b0) = (-m_f, g_{w_f}, -g_{u_f})``, and returns
 the full-suffix state ``(n1, g1, b1)`` that ``ops.aaren_bwd_epilogue`` turns
-into the incoming-carry cotangents.
+into the incoming-carry cotangents.  Packed rows pass ``segment_ends``
+(R, N) bool, the forward's start flags shifted left one: the suffix then
+stops at every end flag, so the seed reaches only the last segment and
+``(n1, g1, b1)`` covers only the first.
 
 * :func:`aaren_scan_bwd_plain` — the suffix scan in plain torch: the leaves
   reversed, ``prefix_scan``, reversed back, the seed folded in.
@@ -29,11 +32,17 @@ import functools
 
 import torch
 
-from repro_torch.core.scan_attention import ScanState, combine, prefix_scan
+from repro_torch.core.scan_attention import (
+    ScanState,
+    combine,
+    combine_segmented,
+    prefix_scan,
+    prefix_scan_segmented,
+)
 from repro_torch.kernels import build
 
 
-def aaren_scan_bwd_plain(s, v, o, m, u, g, n0, g0, b0):
+def aaren_scan_bwd_plain(s, v, o, m, u, g, n0, g0, b0, *, segment_ends=None):
     """(ds (R,N), dv (R,N,d), n1 (R,1), g1 (R,d), b1 (R,1)) in plain torch."""
     # u == 0 only at empty-state positions (padding before any real token,
     # whose g is 0): zeroing 1/u there keeps them inert, as in the JAX kernel.
@@ -41,11 +50,20 @@ def aaren_scan_bwd_plain(s, v, o, m, u, g, n0, g0, b0):
     inv_u = torch.where(zero, 0.0, 1.0 / torch.where(zero, 1.0, u))
     leaves = ScanState(m=-m, u=(g * o).sum(dim=-1) * inv_u,
                        w=g * inv_u[..., None])
-    suffix = prefix_scan(ScanState(*(t.flip(1) for t in leaves)))
-    suffix = ScanState(*(t.flip(1) for t in suffix))
+    flipped = ScanState(*(t.flip(1) for t in leaves))
+    if segment_ends is None:
+        suffix = ScanState(*(t.flip(1) for t in prefix_scan(flipped)))
+    else:  # reversed, the end flags start the reversed segments
+        suffix, seen = prefix_scan_segmented(flipped, segment_ends.flip(1))
+        suffix = ScanState(*(t.flip(1) for t in suffix))
+        seen = seen.flip(1)
     seed = ScanState(m=n0.expand_as(suffix.m), u=b0.expand_as(suffix.u),
                      w=g0[:, None, :].expand_as(suffix.w))
-    total = combine(seed, suffix)
+    if segment_ends is None:
+        total = combine(seed, suffix)
+    else:  # the seed folds only into positions after the last end flag
+        total = ScanState(*combine_segmented(
+            (*seed, torch.zeros_like(seen)), (*suffix, seen))[:3])
     # total.m is -M_j (M is non-decreasing), so e = exp(s_j - M_j) <= 1.
     e = torch.exp(s + total.m)
     ds = e * ((v * total.w).sum(dim=-1) - total.u)
@@ -54,7 +72,7 @@ def aaren_scan_bwd_plain(s, v, o, m, u, g, n0, g0, b0):
             total.u[:, :1].contiguous())
 
 
-def _check(s, v, o, m, u, g, n0, g0, b0):
+def _check(s, v, o, m, u, g, n0, g0, b0, segment_ends):
     if s.ndim != 2 or v.ndim != 3:
         raise ValueError(f"aaren_scan_bwd wants s (R, N) and v (R, N, d); got "
                          f"{tuple(s.shape)} and {tuple(v.shape)}")
@@ -77,12 +95,18 @@ def _check(s, v, o, m, u, g, n0, g0, b0):
             raise ValueError(f"aaren_scan_bwd: {name} is not contiguous")
     if r == 0 or n == 0 or d == 0:
         raise ValueError(f"aaren_scan_bwd: empty shape R={r}, N={n}, d={d}")
+    f = segment_ends
+    if f is not None and (tuple(f.shape) != (r, n) or f.dtype != torch.bool
+                          or f.device != s.device or not f.is_contiguous()):
+        raise ValueError(f"aaren_scan_bwd: segment_ends must be a contiguous "
+                         f"bool ({r}, {n}) tensor on {s.device}; got "
+                         f"{f.dtype} {tuple(f.shape)} on {f.device}")
 
 
 @functools.cache
 def _library():
     lib = build.load("aaren_scan_bwd")
-    lib.aaren_scan_bwd.argtypes = ([ctypes.c_void_p] * 14
+    lib.aaren_scan_bwd.argtypes = ([ctypes.c_void_p] * 15
                                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.aaren_scan_bwd.restype = ctypes.c_int
     lib.aaren_scan_bwd_max_d.argtypes = []
@@ -92,7 +116,7 @@ def _library():
     return lib
 
 
-def _launch(s, v, o, m, u, g, n0, g0, b0):
+def _launch(s, v, o, m, u, g, n0, g0, b0, segment_ends):
     lib = _library()
     r, n = s.shape
     d = v.shape[-1]
@@ -102,11 +126,14 @@ def _launch(s, v, o, m, u, g, n0, g0, b0):
     ds, dv = torch.empty_like(s), torch.empty_like(v)
     n1, g1, b1 = (torch.empty_like(n0), torch.empty_like(g0),
                   torch.empty_like(b0))
+    # A bool tensor's bytes are the kernel's uint8 flags (0 or 1).
+    ends_ptr = None if segment_ends is None else segment_ends.data_ptr()
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream(s.device).cuda_stream
         err = lib.aaren_scan_bwd(
-            *(t.data_ptr() for t in (s, v, o, m, u, g, n0, g0, b0, ds, dv,
-                                     n1, g1, b1)), r, n, d, stream)
+            *(t.data_ptr() for t in (s, v, o, m, u, g, n0, g0, b0)),
+            ends_ptr, *(t.data_ptr() for t in (ds, dv, n1, g1, b1)), r, n,
+            d, stream)
     if err:
         raise RuntimeError("aaren_scan_bwd kernel launch failed: "
                            + lib.aaren_scan_bwd_error_string(err).decode())
@@ -114,19 +141,22 @@ def _launch(s, v, o, m, u, g, n0, g0, b0):
     return ds, dv, n1, g1, b1
 
 
-def aaren_scan_bwd(s, v, o, m, u, g, n0, g0, b0):
+def aaren_scan_bwd(s, v, o, m, u, g, n0, g0, b0, *, segment_ends=None):
     """Fused reverse scan: per-token cotangents + final reverse carry.
 
     s: (R, N); v/o/g: (R, N, d); m/u: (R, N) forward residuals; the seed
     n0/b0: (R, 1), g0: (R, d) — ``(-m_f, g_{w_f}, -g_{u_f})`` — all
-    float32, contiguous, on one device.  Returns (ds: (R, N), dv: (R, N, d),
-    n1: (R, 1), g1: (R, d), b1: (R, 1)).
+    float32, contiguous, on one device.  ``segment_ends``: optional (R, N)
+    contiguous bool flags, True at the last token of each packed segment
+    that has a successor.  Returns (ds: (R, N), dv: (R, N, d), n1: (R, 1),
+    g1: (R, d), b1: (R, 1)).
     """
-    _check(s, v, o, m, u, g, n0, g0, b0)
+    _check(s, v, o, m, u, g, n0, g0, b0, segment_ends)
     if s.device.type == "cpu":
-        return aaren_scan_bwd_plain(s, v, o, m, u, g, n0, g0, b0)
+        return aaren_scan_bwd_plain(s, v, o, m, u, g, n0, g0, b0,
+                                    segment_ends=segment_ends)
     if s.device.type == "cuda":
-        return _launch(s, v, o, m, u, g, n0, g0, b0)
+        return _launch(s, v, o, m, u, g, n0, g0, b0, segment_ends)
     raise ValueError(f"aaren_scan_bwd runs on cpu or cuda, not {s.device}")
 
 

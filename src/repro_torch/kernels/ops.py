@@ -13,7 +13,8 @@ the JAX package's residual contract: the forward runs the scan with
 incoming carries; the backward runs the reverse scan ``aaren_scan_bwd``
 seeded with ``(-m_f, g_{w_f}, -g_{u_f})`` and finishes with
 :func:`aaren_bwd_epilogue`.  A call that needs no gradient (serving) runs
-the scan without residuals.  ``FlashAttention`` does the same for softmax
+the scan without residuals; packed rows (``segment_ids``) run the segmented
+forms of both scans.  ``FlashAttention`` does the same for softmax
 attention: its forward saves ``(q, k, v, o, lse)`` and its backward runs
 the dq and dk/dv passes.
 """
@@ -24,7 +25,12 @@ import math
 
 import torch
 
-from repro_torch.core.scan_attention import NEG_INF, ScanState
+from repro_torch.core.scan_attention import (
+    NEG_INF,
+    ScanState,
+    mask_to_identity,
+    segment_starts_from_ids,
+)
 from repro_torch.kernels.aaren_scan import aaren_scan
 from repro_torch.kernels.aaren_scan_bwd import aaren_scan_bwd
 from repro_torch.kernels.flash_attention import (
@@ -60,34 +66,60 @@ def aaren_bwd_epilogue(s, m0, u0, w0, m_f, u_f, w_f, g_m, g_u, g_w,
     return ds, dm0, du0, dw0
 
 
-class AarenScan(torch.autograd.Function):
-    """(s, v, m0, u0, w0) -> (o, m_f, u_f, w_f) with the analytic backward.
+def _segment_ends(starts):
+    """Reverse-scan boundary flags: the forward's starts shifted left one.
 
-    All inputs f32 and contiguous, shapes as :func:`aaren_scan`.  Unused
-    outputs arrive in the backward as zeros (``materialize_grads``), so the
-    seed is then ``(-m_f, 0, 0)``.
+    Token ``j`` ends its segment iff ``j + 1`` starts one; a row's last
+    token is never flagged, so the final-carry cotangents flow back through
+    padding into the last real segment, as the forward carries through it.
+    """
+    return torch.nn.functional.pad(starts[:, 1:], (0, 1)).contiguous()
+
+
+def _in_last_segment(starts):
+    """(R, N) 1.0 where no segment start occurs strictly after the position:
+    the span ``m_f`` is the max of, so its subgradient routes only there."""
+    future = torch.cummax(starts.flip(-1).to(torch.int32), dim=-1).values
+    return (_segment_ends(future.flip(-1)) == 0).float()
+
+
+class AarenScan(torch.autograd.Function):
+    """(s, v, m0, u0, w0, starts) -> (o, m_f, u_f, w_f) with the analytic
+    backward.
+
+    All inputs f32 and contiguous, shapes as :func:`aaren_scan`; ``starts``
+    None or its (R, N) bool segment-start flags.  Unused outputs arrive in
+    the backward as zeros (``materialize_grads``), so the seed is then
+    ``(-m_f, 0, 0)``.
     """
 
     @staticmethod
-    def forward(ctx, s, v, m0, u0, w0):
+    def forward(ctx, s, v, m0, u0, w0, starts):
         o, m_f, u_f, w_f, m_all, u_all = aaren_scan(
-            s, v, m0, u0, w0, return_residuals=True)
+            s, v, m0, u0, w0, segment_starts=starts, return_residuals=True)
         ctx.save_for_backward(s, v, o, m_all, u_all, m_f, u_f, w_f, m0, u0,
-                              w0)
+                              w0, starts)
         return o, m_f, u_f, w_f
 
     @staticmethod
     def backward(ctx, g_o, g_m, g_u, g_w):
-        s, v, o, m_all, u_all, m_f, u_f, w_f, m0, u0, w0 = ctx.saved_tensors
+        (s, v, o, m_all, u_all, m_f, u_f, w_f, m0, u0, w0,
+         starts) = ctx.saved_tensors
         g_u = g_u.contiguous()
         g_w = g_w.contiguous()
+        ends = hit_mask = None
+        if starts is not None:
+            ends = _segment_ends(starts)
+            hit_mask = _in_last_segment(starts)
         # (u_f, w_f) cotangents seed the reverse carry (a suffix "past" token
         # N); see kernels/aaren_scan_bwd.py.
         ds, dv, n1, g1, b1 = aaren_scan_bwd(
-            s, v, o, m_all, u_all, g_o.contiguous(), -m_f, g_w, -g_u)
+            s, v, o, m_all, u_all, g_o.contiguous(), -m_f, g_w, -g_u,
+            segment_ends=ends)
         ds, dm0, du0, dw0 = aaren_bwd_epilogue(
-            s, m0, u0, w0, m_f, u_f, w_f, g_m, g_u, g_w, ds, n1, g1, b1)
-        return ds, dv, dm0, du0, dw0
+            s, m0, u0, w0, m_f, u_f, w_f, g_m, g_u, g_w, ds, n1, g1, b1,
+            hit_mask=hit_mask)
+        return ds, dv, dm0, du0, dw0, None
 
 
 def aaren_prefix_attention(s, v, carry: ScanState | None = None, *,
@@ -97,15 +129,38 @@ def aaren_prefix_attention(s, v, carry: ScanState | None = None, *,
     s: (..., N) scores; v: (..., N, d) values; carry leaves: m,u (...,),
     w (..., d).  Returns (o: (..., N, d) in v's dtype, final carry
     ScanState in f32).  Differentiable in s, v and the carry.
+
+    Packed rows: ``segment_ids`` (int, id 0 = padding; shape (..., N) or
+    missing one leading dim, e.g. (B, N) against (B, H, N) scores) restarts
+    the scan at every segment start; padding enters as ⊕-identity leaves
+    and reads 0.  Ids must form contiguous same-id runs per row (the
+    packer's contract).  ``segment_starts`` overrides the start flags
+    computed from the ids.  An incoming ``carry`` reaches exactly the
+    positions before a row's first start; the final carry is the last
+    segment's state (padding never resets it).
     """
-    if segment_ids is not None or segment_starts is not None:
-        raise NotImplementedError(
-            "packed sequences (segment_ids/segment_starts) come with the "
-            "packing slice of the port (ROADMAP queue A item 7)")
     batch_shape = tuple(s.shape[:-1])
     n = s.shape[-1]
     d = v.shape[-1]
     r = math.prod(batch_shape)
+    starts2 = pad_mask = None
+    if segment_ids is not None or segment_starts is not None:
+        if segment_ids is not None:
+            seg = torch.as_tensor(segment_ids, device=s.device)
+            if seg.ndim == s.ndim - 1:      # e.g. (B, N) against (B, H, N)
+                seg = seg.unsqueeze(-2)
+            seg = seg.expand(s.shape)
+            # Padding (id 0) enters as ⊕-identity leaves: the scan carries
+            # the last segment's state through it, and its outputs are
+            # pinned to 0 below.
+            pad_mask = seg != 0
+            s, v = mask_to_identity(s, v, pad_mask)
+        if segment_starts is None:
+            segment_starts = segment_starts_from_ids(seg)
+        starts = torch.as_tensor(segment_starts, device=s.device) != 0
+        if starts.ndim == s.ndim - 1:
+            starts = starts.unsqueeze(-2)
+        starts2 = starts.expand(s.shape).reshape(r, n).contiguous()
     s2 = s.reshape(r, n).float().contiguous()
     v2 = v.reshape(r, n, d).float().contiguous()
     if carry is None:
@@ -118,9 +173,11 @@ def aaren_prefix_attention(s, v, carry: ScanState | None = None, *,
         w0 = carry.w.reshape(r, d).float().contiguous()
     args = (s2, v2, m0, u0, w0)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        o, m_f, u_f, w_f = AarenScan.apply(*args)
+        o, m_f, u_f, w_f = AarenScan.apply(*args, starts2)
     else:
-        o, m_f, u_f, w_f = aaren_scan(*args)
+        o, m_f, u_f, w_f = aaren_scan(*args, segment_starts=starts2)
+    if pad_mask is not None:
+        o = torch.where(pad_mask.reshape(r, n, 1), o, 0.0)
     final = ScanState(m=m_f.reshape(batch_shape), u=u_f.reshape(batch_shape),
                       w=w_f.reshape(batch_shape + (d,)))
     return o.reshape(batch_shape + (n, d)).to(v.dtype), final
@@ -165,8 +222,8 @@ def flash_mha(q, k, v, *, causal: bool = True, window: int | None = None,
     """
     if q_segment_ids is not None or kv_segment_ids is not None:
         raise NotImplementedError(
-            "packed sequences (segment ids) come with the packing slice of "
-            "the port (ROADMAP queue A item 7)")
+            "packed sequences through flash attention (segment ids) come "
+            "with ROADMAP queue A item 7b (A7b)")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))

@@ -1,7 +1,8 @@
 """Dense oracles for the Aaren prefix scan and flash attention, with their
 VJPs — the port of ``repro.kernels.ref`` (``aaren_scan_reference``,
-``aaren_scan_vjp_reference``, ``flash_reference``,
-``flash_vjp_reference``; segment ids come with the packing slice), written
+``aaren_scan_vjp_reference``, ``aaren_scan_segmented_reference``,
+``flash_reference``, ``flash_vjp_reference``; flash's segment ids come
+with ROADMAP item A7b), written
 with the simplest correct torch so they double as the readable spec.  The
 flash oracles are the plain versions of B3–B5 under the JAX oracles'
 signatures.  Only the tests use them."""
@@ -105,6 +106,38 @@ def aaren_scan_vjp_reference(s, v, m0, u0, w0, g_o, g_m, g_u, g_w):
     ds = ds + c * hit_s
     dm0 = u0 * du0 + (w0 * dw0).sum(dim=-1, keepdim=True) + c * hit_0
     return ds, dv, dm0, du0, dw0
+
+
+def aaren_scan_segmented_reference(s, v, segment_ids):
+    """All-prefix softmax attention restarting at every segment (densely).
+
+    s: (R, N); v: (R, N, d); segment_ids: (R, N) int — id 0 is padding.
+    Position ``i`` attends ``{j <= i : seg_j == seg_i != 0}`` (its own
+    document's prefix); padding positions attend nothing and read 0.
+    Returns (o: (R, N, d), m_f: (R, 1), u_f: (R, 1), w_f: (R, d)), the
+    finals being the state at the row's last real position — the last
+    segment's, as the segmented scan leaves it (padding never resets).
+    """
+    r, n = s.shape
+    s, v = s.float(), v.float()
+    dev = s.device
+    seg = segment_ids.to(device=dev, dtype=torch.int64)
+    causal = torch.tril(torch.ones((n, n), dtype=torch.bool, device=dev))
+    same = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] != 0)
+    mask = causal[None] & same                                  # (R, N, N)
+    neg = torch.full((), NEG_INF, device=dev)
+    s_ij = torch.where(mask, s[:, None, :], neg)
+    m_pref = s_ij.amax(dim=-1)                                  # (R, N)
+    p = torch.where(mask, torch.exp(s_ij - m_pref[..., None]),
+                    torch.zeros((), device=dev))
+    u = p.sum(dim=-1)
+    w = torch.einsum("rij,rjd->rid", p, v)
+    o = w / torch.where(u == 0.0, torch.ones_like(u), u)[..., None]
+    pos = torch.arange(n, device=dev)[None, :].expand(r, n)
+    last = torch.where(seg != 0, pos, -1).argmax(dim=-1)        # (R,)
+    rows = torch.arange(r, device=dev)
+    return (o, m_pref[rows, last][:, None], u[rows, last][:, None],
+            w[rows, last])
 
 
 def flash_reference(q, k, v, *, causal=True, window=None, scale=None,

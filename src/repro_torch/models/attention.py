@@ -9,7 +9,8 @@ Entry points, as in the JAX package:
   sequence, returning the KV cache for decode; :func:`softmax_step` — one
   token against the (ring) KV cache, O(cache_len) work;
 * :func:`aaren_sequence` — full-sequence prefill (``lengths`` masks a
-  ragged right-padded tail), returning the final carry;
+  ragged right-padded tail, ``segment_ids`` restarts the scan at every
+  packed document), returning the final carry;
 * :func:`aaren_step`     — the O(1) one-token decode update;
 * :func:`aaren_chunk`    — fold a fixed-shape (B, C) chunk into the carry,
   the serving engine's hot path.
@@ -84,7 +85,9 @@ def softmax_state_init(cfg: ArchConfig, batch: int, cache_len: int, device):
 def softmax_sequence(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                      window: int | None, cache_len: int | None = None,
                      pos_offset: int = 0,
-                     lengths: torch.Tensor | None = None):
+                     lengths: torch.Tensor | None = None,
+                     segment_ids: torch.Tensor | None = None,
+                     positions: torch.Tensor | None = None):
     """Causal (optionally windowed) self-attention over a full sequence.
 
     ``lengths`` (B,): true lengths of right-padded ragged rows, masked
@@ -93,8 +96,14 @@ def softmax_sequence(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     masks the padded gap.  ``cache_len``: the decode cache to return —
     ``>= N`` keeps every position, ``< N`` the trailing window as a full
     ring buffer in bf16 (ragged rows would need per-row ring indices, and
-    raise), ``None`` no cache (training).  Returns (y, cache or None).
+    raise), ``None`` no cache (training).  Packed batches (``segment_ids``,
+    ``positions``) raise: their segment tiles and per-document RoPE come
+    with ROADMAP queue A item 7b.  Returns (y, cache or None).
     """
+    if segment_ids is not None or positions is not None:
+        raise NotImplementedError(
+            "packed sequences on a softmax layer (segment_ids, positions) "
+            "come with ROADMAP queue A item 7b (A7b)")
     b, n, _ = x.shape
     q = _proj_q(p, x)
     k, v = _proj_kv(p, x)
@@ -195,24 +204,31 @@ def aaren_state_init(cfg: ArchConfig, batch: int, device) -> ScanState:
                                   device=device)
 
 
-def _prefix_attention(q_heads, k, v, scale, *, carry=None, mask=None):
+def _prefix_attention(q_heads, k, v, scale, *, carry=None, mask=None,
+                      segment_ids=None):
     """Scores + per-head values, then the prefix-scan kernel boundary.
 
     ``mask`` (B, N): valid positions; the rest enter the scan as ⊕-identity
-    leaves.  Returns ((B, N, H, d) in v's dtype, final carry).
+    leaves.  ``segment_ids`` (B, N): packed rows — the scan restarts at
+    every document and padding (id 0) is inert.  Returns ((B, N, H, d) in
+    v's dtype, final carry).
     """
     s = aaren_core._scores(q_heads, k, scale)                  # (B, H, N)
     vh = aaren_core._values_per_head(v, q_heads.shape[0]).float()
     if mask is not None:
         s, vh = mask_to_identity(s, vh, mask[:, None, :])
-    o, final = kops.aaren_prefix_attention(s, vh, carry)       # (B, H, N, d)
+    o, final = kops.aaren_prefix_attention(                    # (B, H, N, d)
+        s, vh, carry, segment_ids=segment_ids)
     return o.transpose(1, 2).to(v.dtype), final
 
 
 def aaren_sequence(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                   segment_ids: torch.Tensor | None = None,
                    lengths: torch.Tensor | None = None):
-    """Full-sequence Aaren (prefix scan from the empty carry).
+    """Full-sequence Aaren (prefix scan from the empty carry).  No RoPE.
 
+    ``segment_ids`` (B, N): packed rows — the scan restarts at every
+    document start and padding (id 0) reads 0 (DESIGN.md §Packing).
     ``lengths`` (B,): ragged right-padded rows — the padded tail enters as
     ⊕-identity leaves, so the final carry is the state at each row's true
     length.  Returns (y (B, N, D), final carry).
@@ -223,7 +239,8 @@ def aaren_sequence(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                 < lengths[:, None])
 
     def attention_fn(q_heads, k, v, scale):
-        return _prefix_attention(q_heads, k, v, scale, mask=mask)
+        return _prefix_attention(q_heads, k, v, scale, mask=mask,
+                                 segment_ids=segment_ids)
 
     return aaren_core.aaren_layer_parallel(_aaren_weights(p), x, attention_fn)
 

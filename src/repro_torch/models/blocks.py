@@ -83,19 +83,26 @@ def _apply_mlp(p: dict, x: torch.Tensor, sig: Sig, cfg: ArchConfig):
 
 def block_sequence(p: dict, x: torch.Tensor, sig: Sig, cfg: ArchConfig, *,
                    cache_len: int | None = None,
+                   segment_ids: torch.Tensor | None = None,
+                   positions: torch.Tensor | None = None,
                    lengths: torch.Tensor | None = None):
     """Full-sequence block.  Returns (x, decode state).
 
     A softmax layer returns a KV cache of ``cache_len`` slots, or None
-    when ``cache_len`` is None (training keeps no cache)."""
+    when ``cache_len`` is None (training keeps no cache).
+    ``segment_ids``/``positions``: packed-sequence arrays (only the mixer
+    reads them; Aaren has no RoPE and ignores ``positions``)."""
     check_sig(sig)
     h = apply_norm(p["norm1"], x, cfg.norm)
     if sig[0] == "aaren":
-        y, state = attn.aaren_sequence(p["mixer"], h, cfg, lengths=lengths)
+        y, state = attn.aaren_sequence(p["mixer"], h, cfg,
+                                       segment_ids=segment_ids,
+                                       lengths=lengths)
     else:
         y, state = attn.softmax_sequence(
             p["mixer"], h, cfg, window=_window(sig, cfg),
-            cache_len=_cache_len(sig, cfg, cache_len), lengths=lengths)
+            cache_len=_cache_len(sig, cfg, cache_len), lengths=lengths,
+            segment_ids=segment_ids, positions=positions)
     return _apply_mlp(p, x + y, sig, cfg), state
 
 

@@ -67,8 +67,15 @@ def _logits(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 
 def lm_apply(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
              collect_state: bool = False, cache_len: int | None = None,
+             segment_ids: torch.Tensor | None = None,
+             positions: torch.Tensor | None = None,
              lengths: torch.Tensor | None = None):
     """tokens (B, N) -> (logits (B, N, vocab) f32, states or None).
+
+    Packed batches (DESIGN.md §Packing): ``segment_ids``/``positions``
+    (B, N) keep the packed documents independent in every mixer (Aaren's
+    scan restarts at each document; softmax layers raise until ROADMAP
+    item A7b).
 
     ``lengths`` (B,): true lengths of right-padded ragged rows — each row's
     padded tail is masked in the scan and the flash kernels, so the
@@ -92,7 +99,8 @@ def lm_apply(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         cache_len = None
     elif cache_len is None:
         cache_len = tokens.shape[1]
-    kw = dict(cache_len=cache_len, lengths=lengths)
+    kw = dict(cache_len=cache_len, segment_ids=segment_ids,
+              positions=positions, lengths=lengths)
     states = []
     for i, (p, sig) in enumerate(zip(params["layers"], layer_sigs(cfg))):
         if i < n_remat and torch.is_grad_enabled():
@@ -105,28 +113,34 @@ def lm_apply(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
 
 
 def lm_loss(cfg: ArchConfig, params: dict, batch: dict):
-    """Next-token CE loss.  batch: {"tokens": (B, N), "loss_mask": (B, N)?}.
+    """Next-token CE loss.  batch: {"tokens": (B, N), "loss_mask": (B, N)?,
+    "segment_ids": (B, N)?, "positions": (B, N)?}.
 
     Returns (loss, metrics): the masked mean of ``-log p(token_{t+1})`` in
     f32, and ``{"loss", "ce"}`` plus the zero auxiliary metrics of a dense
-    model (``blocks.ZERO_AUX``), all detached.  Packed batches
-    (``segment_ids``, ``positions``) and VLM ``prefix_embeds`` raise until
-    their slices of the port land.
+    model (``blocks.ZERO_AUX``), all detached.  Packed batches: position
+    ``t`` scores its target ``t+1`` only when both belong to the same real
+    document (``seg[t] == seg[t+1] != 0``), so no document is trained to
+    predict the next one's first token and padding is never scored.  VLM
+    ``prefix_embeds`` raise until their slice of the port lands.
     """
-    for key, item in (("segment_ids", 7), ("positions", 7),
-                      ("prefix_embeds", 10)):
-        if batch.get(key) is not None:
-            raise NotImplementedError(
-                f"lm_loss: batch[{key!r}] comes with a later slice of the "
-                f"port (ROADMAP queue A item {item})")
+    if batch.get("prefix_embeds") is not None:
+        raise NotImplementedError(
+            "lm_loss: batch['prefix_embeds'] comes with a later slice of the "
+            "port (ROADMAP queue A item 10)")
     tokens = batch["tokens"]
-    logits, _ = lm_apply(cfg, params, tokens)
+    seg = batch.get("segment_ids")
+    logits, _ = lm_apply(cfg, params, tokens, segment_ids=seg,
+                         positions=batch.get("positions"))
     targets = tokens[:, 1:].long()
     logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     nll = -logp.gather(-1, targets[..., None])[..., 0]
     mask = batch.get("loss_mask")
     mask = (torch.ones_like(nll) if mask is None
             else mask[:, 1:].to(nll.dtype))
+    if seg is not None:  # cross-segment-safe: target must share the document
+        same_doc = (seg[:, 1:] == seg[:, :-1]) & (seg[:, 1:] != 0)
+        mask = mask * same_doc.to(nll.dtype)
     ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     aux = {k: torch.full((), v, device=ce.device)
            for k, v in blocks.ZERO_AUX.items()}

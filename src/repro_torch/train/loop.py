@@ -6,12 +6,14 @@ synchronised before each step's wall time is read; ``history`` and
 wall time feeds an EWMA + variance estimate, and a step slower than
 ``mu + straggler_k * sigma`` is recorded (after ``straggler_warmup``
 samples, with sigma floored at 5 % of the mean; the first step, which pays
-for warm-up, never feeds the estimate).
+for warm-up, never feeds the estimate); and, with ``pack_sequences``, the
+packed-batch check and each step's ``token_util`` (real tokens / row
+slots) beside the loss.
 
 Not ported yet, and refused when asked for rather than ignored:
-checkpoint/restart, guarded numerics, the event and metrics sinks and
-packed-batch accounting (the training harness, ROADMAP queue A items 7–8),
-and the mesh knobs (multi-device layers, item 11).
+checkpoint/restart, guarded numerics and the event and metrics sinks (the
+training harness, ROADMAP queue A item 8), and the mesh knobs
+(multi-device layers, item 11).
 """
 
 from __future__ import annotations
@@ -34,12 +36,15 @@ class LoopConfig:
     straggler_k: float = 3.0
     straggler_warmup: int = 10
     seed: int = 0
+    # Packed batches (data/packing.py): each must carry ``segment_ids``;
+    # ``token_util`` joins the logged metrics.  The model keys off the
+    # batch arrays and needs no switch.
+    pack_sequences: bool = False
     # Later slices of the port; each raises NotImplementedError when set.
     ckpt_dir: str | None = None            # item 8
     events: str | None = None              # item 8
     metrics_out: str | None = None         # item 8
     guard: bool = False                    # item 8
-    pack_sequences: bool = False           # item 7
     context_parallel: int = 1              # item 11
     model_parallel: int = 1                # item 11
     fsdp: int = 0                          # item 11 (0 = auto, 1 = off)
@@ -51,7 +56,6 @@ def check_ported(cfg: LoopConfig) -> None:
              ("events", cfg.events is not None, 8),
              ("metrics_out", cfg.metrics_out is not None, 8),
              ("guard", cfg.guard, 8),
-             ("pack_sequences", cfg.pack_sequences, 7),
              ("context_parallel", cfg.context_parallel != 1, 11),
              ("model_parallel", cfg.model_parallel != 1, 11),
              ("fsdp", cfg.fsdp > 1, 11)]
@@ -94,6 +98,15 @@ def run_train_loop(
     while state.step < cfg.total_steps:
         step = state.step
         batch = next(data_iter)
+        token_util = None
+        if cfg.pack_sequences:
+            if "segment_ids" not in batch:
+                raise ValueError(
+                    "pack_sequences=True but the batch has no segment_ids; "
+                    "use a packing iterator "
+                    "(repro_torch.data.packing.PackedLMIterator)")
+            seg = torch.as_tensor(batch["segment_ids"])
+            token_util = float((seg != 0).float().mean())
         gen = _generator(device, cfg.seed, step)
         t0 = time.perf_counter()
         state, metrics = train_step(state, batch, gen)
@@ -118,6 +131,8 @@ def run_train_loop(
         if step % cfg.log_every == 0:
             m = {k: float(v) for k, v in metrics.items()}
             m["step_time_s"] = dt
+            if token_util is not None:
+                m["token_util"] = token_util
             history.append((step, m))
             if on_log:
                 on_log(step, m)

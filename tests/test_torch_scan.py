@@ -23,7 +23,8 @@ from repro.kernels.ops import aaren_prefix_attention as _jax_prefix_attention
 from repro.kernels.ref import aaren_scan_reference as _jax_reference
 from repro_torch.core.scan_attention import NEG_INF, ScanState
 from repro_torch.kernels.aaren_scan import aaren_scan, aaren_scan_plain
-from repro_torch.kernels.ops import aaren_prefix_attention
+from repro_torch.kernels.aaren_scan_bwd import aaren_scan_bwd
+from repro_torch.kernels.ops import aaren_prefix_attention, flash_mha
 from repro_torch.kernels.ref import aaren_scan_reference
 
 # One jit per shape: eager JAX compiles every primitive of the scan anew.
@@ -161,11 +162,23 @@ def test_ops_leading_dims_match_jax():
 
 
 def test_ops_refuses_segments_and_wrapper_checks_inputs():
+    """flash_mha still refuses segment ids (ROADMAP item A7b); the Aaren
+    scan takes them (tests/test_torch_packing.py), and its wrappers check
+    every input, the segment flags included."""
     s = torch.zeros(2, 4)
     v = torch.zeros(2, 4, 8)
-    with pytest.raises(NotImplementedError, match="packing"):
-        aaren_prefix_attention(s, v, segment_ids=torch.ones(2, 4))
+    q = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(NotImplementedError, match="A7b"):
+        flash_mha(q, q, q, q_segment_ids=torch.ones(1, 4, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="A7b"):
+        flash_mha(q, q, q, kv_segment_ids=torch.ones(1, 4, dtype=torch.int32))
     m0, u0, w0 = torch.zeros(2, 1), torch.zeros(2, 1), torch.zeros(2, 8)
+    for bad in (torch.ones(2, 4), torch.ones(2, 3, dtype=torch.bool),
+                torch.ones(4, 2, dtype=torch.bool).t()):
+        with pytest.raises(ValueError, match="segment_starts"):
+            aaren_scan(s, v, m0, u0, w0, segment_starts=bad)
+        with pytest.raises(ValueError, match="segment_ends"):
+            aaren_scan_bwd(s, v, v, s, s, v, m0, w0, u0, segment_ends=bad)
     with pytest.raises(ValueError, match="float32"):
         aaren_scan(s.double(), v, m0, u0, w0)
     with pytest.raises(ValueError, match="shape"):
@@ -200,9 +213,10 @@ def _imports(path: Path) -> set[str]:
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """src/repro_torch/ and chip_smoke.py import no jax and nothing of the
-    JAX package ``repro``."""
+    """src/repro_torch/, benchmarks/torch/ and chip_smoke.py import no jax
+    and nothing of the JAX package ``repro``."""
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files += sorted((REPO / "benchmarks" / "torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
     bad = {}

@@ -155,12 +155,18 @@ def test_remat_block_recomputes_and_matches_none(model, monkeypatch):
 
 
 def test_lm_loss_refuses_later_slices(model):
+    """VLM prefix embeddings raise (item 10); packed batches train Aaren
+    (tests/test_torch_packing.py) but raise on softmax layers (item A7b)."""
     _, jparams, cfg, api, _ = model
     params = _port_params(jparams, cfg)
     tokens = torch.zeros((1, 4), dtype=torch.int64)
-    for key in ("segment_ids", "positions", "prefix_embeds"):
-        with pytest.raises(NotImplementedError, match="item"):
-            api.loss(params, {"tokens": tokens, key: tokens})
+    with pytest.raises(NotImplementedError, match="item 10"):
+        api.loss(params, {"tokens": tokens, "prefix_embeds": tokens})
+    soft = build(cfg.replace(attn_mode="softmax"))
+    soft_params = soft.init(0, device="cpu")
+    for key in ("segment_ids", "positions"):
+        with pytest.raises(NotImplementedError, match="A7b"):
+            soft.loss(soft_params, {"tokens": tokens, key: tokens + 1})
 
 
 # ---------------------------------------------------------------------------
@@ -405,11 +411,16 @@ def test_loop_detects_a_straggler(monkeypatch):
     dict(guard=True), dict(pack_sequences=True), dict(context_parallel=2),
     dict(model_parallel=2), dict(fsdp=2)], ids=lambda k: next(iter(k)))
 def test_loop_refuses_knobs_of_later_slices(knob):
+    """Knobs of later slices raise naming their item; ``pack_sequences``
+    is ported and refuses only a batch without ``segment_ids``."""
     cfg = smoke_config("phi3-mini-3.8b", n_layers=1)
     opt = toptim.make_optimizer("adamw", toptim.warmup_cosine(1e-3, 1, 4))
     state = init_train_state(build(cfg).init(0, device="cpu"), opt)
-    with pytest.raises(NotImplementedError, match="item"):
-        run_train_loop(None, state, None, LoopConfig(total_steps=1, **knob))
+    exc, match = ((ValueError, "segment_ids") if "pack_sequences" in knob
+                  else (NotImplementedError, "item"))
+    with pytest.raises(exc, match=match):
+        run_train_loop(None, state, iter([{"tokens": np.zeros((1, 4))}]),
+                       LoopConfig(total_steps=1, **knob))
     with pytest.raises(NotImplementedError, match="item 8"):
         make_train_step(None, opt, guard=object())
 
