@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""A/B of the Aaren scan kernels (B1, B2) of two trees of the port, on one card.
+"""A/B of the kernels B1–B5 of two trees of the port, on one card.
 
 Each side runs in its own process with its own ``src/`` on the path, so it
 builds and calls its own CUDA sources through its own wrappers, on the same
-numpy inputs (the unflagged call every version of the wrappers takes).  The
-sides run in turns — A, B, B, A — and the script prints each run's device
-time (one launch inside a replayed CUDA graph) and whether the two trees'
-outputs are bit-identical.
+numpy inputs (the call without segment flags or ids, which every version
+of the wrappers takes).  The sides run in turns — A, B, B, A — and the
+script prints each run's device time (one launch inside a replayed CUDA
+graph) and whether the two trees' outputs are bit-identical.  Shapes are
+phi3-mini-3.8b's: the Aaren scans at the serving tick and the training
+shape, the flash kernels at the training shape.
 
     git archive <parent> | tar -x -C build/parent
-    python3 benchmarks/torch/scan_ab.py --a build/parent --b .
+    python3 benchmarks/torch/kernels_ab.py --a build/parent --b .
 """
 
 from __future__ import annotations
@@ -26,10 +28,14 @@ from pathlib import Path
 SHAPES = [("serving tick", 256, 16, 96, False),
           ("training", 128, 1024, 96, True)]
 
+# B, H = G, N, d of the flash kernels (bf16, causal)
+FLASH_SHAPE = (4, 32, 1024, 96)
+
 SIDE = r'''
-import statistics, sys
+import math, statistics, sys
 import numpy as np, torch
 from repro_torch.core.scan_attention import NEG_INF
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.aaren_scan import aaren_scan
 from repro_torch.kernels.aaren_scan_bwd import aaren_scan_bwd
 
@@ -76,12 +82,32 @@ for label, r, n, d, residuals in SHAPES:
         times["B2"] = graph_ms(lambda: aaren_scan_bwd(*args), 20)
     for k, ms in times.items():
         print(f"TIME {label} {k} {ms * 1e3:.2f}")
+
+b, h, n, d = FLASH_SHAPE
+rng = np.random.default_rng(1)
+q, k, v, do = (torch.from_numpy(rng.standard_normal((b, h, n, d))
+                                .astype(np.float32)).cuda().bfloat16()
+               for _ in range(4))
+lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
+kw = dict(causal=True, window=None, scale=1.0 / math.sqrt(d))
+fwd = lambda: fa.flash_attention(q, k, v, return_residuals=True, **kw)
+o, lse = fwd()
+delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+args = (q, k, v, do, lse, delta, lens, lens)
+calls = {"B3": fwd, "B4": lambda: fa.flash_bwd_dq(*args, **kw),
+         "B5": lambda: fa.flash_bwd_dkv(*args, **kw)}
+for key, fn in calls.items():
+    res = fn()
+    out["flash training " + key] = [t.cpu() for t in
+                                    (res if isinstance(res, tuple) else
+                                     (res,))]
+    print(f"TIME flash training {key} {graph_ms(fn, 10) * 1e3:.2f}")
 torch.save(out, sys.argv[1])
 '''
 
 
 def run_side(tree: Path, dump: Path) -> dict[str, float]:
-    code = f"SHAPES = {SHAPES!r}\n" + SIDE
+    code = f"SHAPES = {SHAPES!r}\nFLASH_SHAPE = {FLASH_SHAPE!r}\n" + SIDE
     proc = subprocess.run(
         [sys.executable, "-c", code, str(dump)], capture_output=True,
         text=True, env={**os.environ, "PYTHONPATH": str(tree / "src")},
@@ -105,7 +131,7 @@ def main(argv=None) -> int:
     ap.add_argument("--b", type=Path, required=True, help="tree B (change)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
-        print("scan_ab: no CUDA device is available", file=sys.stderr)
+        print("kernels_ab: no CUDA device is available", file=sys.stderr)
         return 1
     trees = {"A": args.a.resolve(), "B": args.b.resolve()}
     with tempfile.TemporaryDirectory() as tmp:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths — Aaren, packed
-Aaren and the softmax baseline — on one CUDA card and check them.
+"""Drive the PyTorch port's serving and training paths — Aaren and the
+softmax baseline, each also on packed documents — on one CUDA card and
+check them.
 
 Run from the root of the repository, on a machine with one NVIDIA H100:
 
@@ -25,11 +26,16 @@ own error):
    at the training N), and all-zero flags against no flags, bit for bit.
    B3, B4 and B5 on edge shapes (N = 1, odd N, N = 1000, ragged lengths
    with 0 and all-empty rows, window, GQA, d from 32 to 256, f32 and
-   bf16), and a small f32 softmax
-   model's greedy tokens (plain and ragged prompts), loss, gradients and
-   three train steps on the card against the CPU.  A small f32 Aaren
-   model's packed loss and gradients on the card against the CPU, and its
-   packed loss against per-document evaluation.
+   bf16).  The segmented B3, B4 and B5 on packed edge cases (single-token
+   documents, a document straddling 64-row tiles, a padding tail, an
+   all-padding row, reused non-monotone ids, ids with q/kv lengths, ids
+   with a window, GQA, d = 32 and 256, N = 1 and 1000, f32 and bf16), with
+   padding rows and keys exactly 0 and all-ones ids against no ids, bit
+   for bit.  A small f32 softmax model's greedy tokens (plain and ragged
+   prompts), loss, gradients and three train steps on the card against the
+   CPU.  Small f32 Aaren and softmax models' packed loss and gradients on
+   the card against the CPU, and their packed loss against per-document
+   evaluation.
 4. Full-width serving: ``phi3-mini-3.8b`` as registered (bf16, 32 layers,
    d_model 3072, 32 x 96 heads), random weights from a seed, 16 requests
    through the ``StreamingEngine`` (8 slots, chunk 16, prompts of 32-256
@@ -65,6 +71,16 @@ own error):
    tensor), captured layer-0/31 inputs against the plain versions, step
    time, tokens/s and real tokens/s (x token_util), peak memory, a profile
    and both segmented kernels' device time against their bounds.
+4f. Full-width packed softmax training: phase 4c on the same
+   ``PackedLMIterator`` batches through ``pack_sequences=True``: counts
+   zeroed just before and read just after (64 segmented B3, 32 segmented
+   B4 and 32 segmented B5 launches a step, every call carrying ids, no
+   plain flash version reached with a CUDA tensor), layer 0's captured
+   inputs against the plain versions, step time, tokens/s and real
+   tokens/s, peak memory, a profile, and the three segmented kernels'
+   device time against bounds counted on this batch's live same-document
+   causal pairs, beside ``scaled_dot_product_attention`` under the
+   block-diagonal causal boolean mask as the yardstick.
 5. Result lines: the kernels' JSON, the card, and the contract line.
 """
 
@@ -532,11 +548,15 @@ def _grad_close(a, b, rtol, what):
     return err
 
 
-def _check_flash(torch, q, k, v, do, lens, causal, window, label):
-    """B3, B4 and B5 against their plain versions on the same tensors.
-    Returns the max |kernel - plain| of each, keyed by wrapper name."""
+def _check_flash(torch, q, k, v, do, lens, causal, window, label, seg=None):
+    """B3, B4 and B5 against their plain versions on the same tensors, with
+    segment ids ``seg`` (B, N) for both q and kv when given.  Masked
+    queries (by length or padding id) must read o = 0 and lse = NEG_INF
+    and get dq = 0, masked keys dk = dv = 0, exactly.  Returns the max
+    |kernel - plain| of each, keyed by wrapper name."""
     import math
 
+    from repro_torch.core.scan_attention import NEG_INF
     from repro_torch.kernels import flash_attention as fa
 
     dtype = str(q.dtype).split(".")[-1]
@@ -546,7 +566,9 @@ def _check_flash(torch, q, k, v, do, lens, causal, window, label):
     kl = fa._lens(lens, b, n_k, q.device)
     kw = dict(causal=causal, window=window, scale=1.0 / math.sqrt(d))
     o, lse = fa.flash_attention(q, k, v, q_lens=lens, kv_lens=lens,
+                                q_segment_ids=seg, kv_segment_ids=seg,
                                 return_residuals=True, **kw)
+    kw.update(q_seg=seg, kv_seg=seg)
     o_p, lse_p = fa.flash_attention_plain(q, k, v, ql, kl, **kw)
     torch.cuda.synchronize()
     tol = FLASH_FWD_TOL[dtype]
@@ -556,9 +578,12 @@ def _check_flash(torch, q, k, v, do, lens, causal, window, label):
     torch.testing.assert_close(lse, lse_p, rtol=2e-5, atol=2e-5,
                                msg=lambda m: f"{label} lse: {m}")
     dead = torch.arange(n_q, device=q.device)[None, :] >= ql[:, None]
+    dead_k = torch.arange(n_k, device=q.device)[None, :] >= kl[:, None]
+    if seg is not None:
+        dead, dead_k = dead | (seg == 0), dead_k | (seg == 0)
     _require(bool((o.float()[dead[:, None].expand(b, h, n_q)] == 0).all()
                   and (lse[dead[:, None].expand(b, h, n_q)]
-                       <= -1e38).all()),
+                       == NEG_INF).all()),
              f"{label}: a masked query does not read o = 0, lse = NEG_INF")
     errs = {"flash_attention": (o.float() - o_p.float()).abs().max().item()}
 
@@ -573,13 +598,13 @@ def _check_flash(torch, q, k, v, do, lens, causal, window, label):
     errs["flash_bwd_dq"] = _grad_close(dq, dq_p, rtol, f"{label} dq")
     errs["flash_bwd_dkv"] = max(_grad_close(dk, dk_p, rtol, f"{label} dk"),
                                 _grad_close(dv, dv_p, rtol, f"{label} dv"))
-    dead_k = (torch.arange(n_k, device=q.device)[None, :]
-              >= kl[:, None])[:, None].expand(b, k.shape[1], n_k)
+    dead_k = dead_k[:, None].expand(b, k.shape[1], n_k)
     _require(bool((dq[dead[:, None].expand(b, h, n_q)] == 0).all()
                   and (dk[dead_k] == 0).all() and (dv[dead_k] == 0).all()),
              f"{label}: a masked query or key has a nonzero gradient")
-    print(f"  {label}: B={b} H={h} G={k.shape[1]} N={n_q} d={d} {dtype}: "
-          f"max|kernel - plain| B3 {errs['flash_attention']:.3e}, B4 "
+    ids = "" if seg is None else ", segment ids"
+    print(f"  {label}: B={b} H={h} G={k.shape[1]} N={n_q} d={d} {dtype}"
+          f"{ids}: max|kernel - plain| B3 {errs['flash_attention']:.3e}, B4 "
           f"{errs['flash_bwd_dq']:.3e}, B5 {errs['flash_bwd_dkv']:.3e}")
     return errs
 
@@ -599,34 +624,161 @@ def phase3_flash_kernels(torch, np) -> dict:
     return errs
 
 
-def _causal_pairs(n_q, n_k, lens, causal, window) -> int:
-    """Live (query, key) pairs of one head, summed over the batch rows."""
+def _doc_spans(np, n, seed, tail=0):
+    """Contiguous documents of 1 to n/3 tokens filling [0, n - tail), ids
+    counting up from 1: (id, start, stop) triples."""
+    rng = np.random.default_rng(seed)
+    spans, a = [], 0
+    while a < n - tail:
+        c = min(n - tail, a + int(rng.integers(1, max(2, n // 3))))
+        spans.append((len(spans) + 1, a, c))
+        a = c
+    return spans
+
+
+# label, (B, H, G, N, d), dtype, window, per-row lengths (q and kv), and the
+# documents of each row as (id, start, stop); the rest of a row is padding.
+SEG_FLASH_CASES = [
+    ("single-token documents, an all-padding row", (2, 2, 2, 70, 32),
+     "float32", None, None,
+     lambda np: [[(i + 1, i, i + 1) for i in range(70)], []]),
+    ("a document straddling 64-row tiles, padding tail", (2, 4, 4, 200, 96),
+     "float32", None, None,
+     lambda np: [[(1, 0, 50), (2, 50, 130), (3, 130, 180)], [(1, 0, 200)]]),
+    ("reused non-monotone ids, q/kv lengths", (2, 4, 2, 300, 64), "float32",
+     None, (250, 300),
+     lambda np: [[(2, 0, 60), (1, 60, 140), (2, 140, 200), (5, 200, 300)],
+                 [(7, 0, 100), (3, 100, 300)]]),
+    ("window 48, GQA 8:2, packed", (2, 8, 2, 333, 96), "float32", 48, None,
+     lambda np: [_doc_spans(np, 333, 1, tail=20), _doc_spans(np, 333, 2)]),
+    ("d = 256 (32-row kv tiles), GQA 2:1, packed, lengths",
+     (2, 2, 1, 257, 256), "float32", None, (257, 200),
+     lambda np: [_doc_spans(np, 257, 3, tail=9), _doc_spans(np, 257, 4)]),
+    ("d = 32, N = 1, an all-padding row", (2, 2, 2, 1, 32), "float32", None,
+     None, lambda np: [[(1, 0, 1)], []]),
+    ("N = 1000, GQA 4:2, packed, padding tail", (2, 4, 2, 1000, 96),
+     "float32", None, None,
+     lambda np: [_doc_spans(np, 1000, 5, tail=77), _doc_spans(np, 1000, 6)]),
+    ("bf16, N = 1024, packed", (1, 8, 8, 1024, 96), "bfloat16", None, None,
+     lambda np: [_doc_spans(np, 1024, 7, tail=100)]),
+    ("bf16, d = 256, window 32, reused ids", (1, 2, 2, 129, 256),
+     "bfloat16", 32, None,
+     lambda np: [[(3, 0, 40), (1, 40, 90), (3, 90, 129)]]),
+    ("bf16, single-token documents, lengths, an all-padding row",
+     (2, 2, 2, 33, 32), "bfloat16", None, (33, 10),
+     lambda np: [[(i + 1, i, i + 1) for i in range(33)], []]),
+]
+# Unsegmented cases (FLASH_CASES labels) rerun with all-ones ids, which
+# must give the unsegmented kernels' outputs bit for bit.
+ONES_CASES = ("N = 1000, GQA 4:2, ragged", "d = 256, ragged, GQA 2:1",
+              "bf16, GQA 8:2, ragged", "bf16, d = 256, window 32")
+
+
+def _span_ids(torch, b, n, rows):
+    seg = torch.zeros((b, n), dtype=torch.int32)
+    for r, spans in enumerate(rows):
+        for sid, a, c in spans:
+            seg[r, a:c] = sid
+    return seg.cuda()
+
+
+def _flash_kernel_outputs(torch, q, k, v, do, lens, causal, window, seg):
+    """(o, lse, dq, dk, dv) from the three kernels alone."""
+    import math
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b, _, n_q, d = q.shape
+    kw = dict(causal=causal, window=window, scale=1.0 / math.sqrt(d))
+    o, lse = fa.flash_attention(q, k, v, q_lens=lens, kv_lens=lens,
+                                q_segment_ids=seg, kv_segment_ids=seg,
+                                return_residuals=True, **kw)
+    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+    args = (q, k, v, do, lse, delta, fa._lens(lens, b, n_q, q.device),
+            fa._lens(lens, b, k.shape[2], q.device))
+    kw.update(q_seg=seg, kv_seg=seg)
+    return (o, lse, fa.flash_bwd_dq(*args, **kw),
+            *fa.flash_bwd_dkv(*args, **kw))
+
+
+def phase3_segmented_flash_kernels(torch, np) -> dict:
+    """The segmented B3, B4 and B5 against their plain versions on packed
+    edge cases, and all-ones ids against no ids, bit for bit.  Returns
+    {wrapper name: max |kernel - plain|}."""
+    errs = {"flash_attention": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for i, (label, (b, h, g, n, d), dtype, window, lens,
+            rows) in enumerate(SEG_FLASH_CASES):
+        q, k, v, do = _flash_inputs(torch, np, b, h, g, n, d, dtype,
+                                    seed=500 + i)
+        lens_t = (None if lens is None else
+                  torch.tensor(lens, dtype=torch.int32, device="cuda"))
+        seg = _span_ids(torch, b, n, rows(np))
+        got = _check_flash(torch, q, k, v, do, lens_t, True, window, label,
+                           seg=seg)
+        errs = {key: max(errs[key], got[key]) for key in errs}
+    cases = {c[0]: c for c in FLASH_CASES}
+    for i, label in enumerate(ONES_CASES):
+        _, (b, h, g, n, d), dtype, causal, window, lens = cases[label]
+        q, k, v, do = _flash_inputs(torch, np, b, h, g, n, d, dtype,
+                                    seed=600 + i)
+        lens_t = (None if lens is None else
+                  torch.tensor(lens, dtype=torch.int32, device="cuda"))
+        ones = torch.ones((b, n), dtype=torch.int32, device="cuda")
+        with_ids = _flash_kernel_outputs(torch, q, k, v, do, lens_t, causal,
+                                         window, ones)
+        without = _flash_kernel_outputs(torch, q, k, v, do, lens_t, causal,
+                                        window, None)
+        for name, a, c in zip(("o", "lse", "dq", "dk", "dv"), with_ids,
+                              without):
+            _require(torch.equal(a, c), f"{label}: all-ones ids change {name}"
+                     f" by {(a.float() - c.float()).abs().max().item():.3e}")
+    print("  segmented B3, B4 and B5: all-ones ids give bit-identical "
+          f"outputs to no ids on {len(ONES_CASES)} cases")
+    return errs
+
+
+def _causal_pairs(n_q, n_k, lens, causal, window, seg=None) -> int:
+    """Live (query, key) pairs of one head, summed over the batch rows:
+    what this run's masks leave, the segment ids ``seg`` (B, N) included."""
+    import numpy as np
+
+    i = np.arange(n_q)[:, None]
+    j = np.arange(n_k)[None, :]
+    base = np.ones((n_q, n_k), bool)
+    if causal:
+        base &= j <= i
+    if window is not None:
+        base &= j > i - window
     total = 0
-    for ln in lens:
-        for i in range(min(ln, n_q)):
-            hi = min(i + 1, n_k, ln) if causal else min(n_k, ln)
-            lo = 0 if window is None else max(0, i - window + 1)
-            total += max(0, hi - lo)
+    for r, ln in enumerate(lens):
+        live = base & (i < ln) & (j < ln)
+        if seg is not None:
+            sq, sk = seg[r, :n_q, None], seg[r, None, :n_k]
+            live &= (sq == sk) & (sq != 0)
+        total += int(live.sum())
     return total
 
 
-def _flash_bounds(torch, q, k, lens, causal, window):
+def _flash_bounds(torch, q, k, lens, causal, window, seg=None):
     """(bound row of B3, of B4, of B5): each input read once, each output
-    written once; the products on the live pairs of this run's masks (4, 6
-    and 8 flops a pair and element of d) at the card's peak rate for the
-    input type: the bf16 tensor cores for bf16 inputs, f32 outside the
-    tensor cores for f32 inputs.  The f32 SIMT bound, the rate the kernels
-    compute at, stands beside it."""
+    written once (segment ids, when given, 4 bytes a token for q and for
+    kv); the products on the live pairs of this run's masks (4, 6 and 8
+    flops a pair and element of d) at the card's peak rate for the input
+    type: the bf16 tensor cores for bf16 inputs, f32 outside the tensor
+    cores for f32 inputs.  The f32 SIMT bound, the rate the kernels compute
+    at, stands beside it."""
     b, h, n_q, d = q.shape
     g, n_k = k.shape[1], k.shape[2]
     lens = [n_q] * b if lens is None else [int(x) for x in lens.tolist()]
-    pairs = h * _causal_pairs(n_q, n_k, lens, causal, window)
+    pairs = h * _causal_pairs(n_q, n_k, lens, causal, window,
+                              None if seg is None else seg.cpu().numpy())
     e = q.element_size()
     qb, kb = b * h * n_q * d * e, b * g * n_k * d * e
     rows = 4 * b * h * n_q
-    nbytes = {"flash_attention": 2 * qb + 2 * kb + rows,
-              "flash_bwd_dq": 3 * qb + 2 * kb + 2 * rows,
-              "flash_bwd_dkv": 2 * qb + 4 * kb + 2 * rows}
+    ids = 0 if seg is None else 4 * b * (n_q + n_k)
+    nbytes = {"flash_attention": 2 * qb + 2 * kb + rows + ids,
+              "flash_bwd_dq": 3 * qb + 2 * kb + 2 * rows + ids,
+              "flash_bwd_dkv": 2 * qb + 4 * kb + 2 * rows + ids}
     flops = {"flash_attention": 4 * pairs * d, "flash_bwd_dq": 6 * pairs * d,
              "flash_bwd_dkv": 8 * pairs * d}
     rate = BF16_DENSE_FLOPS if q.dtype == torch.bfloat16 else F32_OPS_PER_S
@@ -635,6 +787,7 @@ def _flash_bounds(torch, q, k, lens, causal, window):
         bound_ms, bound_by = _bound(nbytes[name], flops[name], rate)
         out[name] = {"bound_ms": bound_ms, "bound_by": bound_by,
                      "bytes": nbytes[name], "flops": flops[name],
+                     "pairs": pairs,
                      "rate": rate,
                      "f32_simt_bound_ms": _bound(nbytes[name],
                                                  flops[name])[0]}
@@ -642,12 +795,13 @@ def _flash_bounds(torch, q, k, lens, causal, window):
 
 
 def flash_kernel_times(torch, q, k, v, do, lens, causal, window, card,
-                       n_iter=10, plain_iter=3):
-    """B3, B4 and B5 at the given (main-path) inputs: device time in a
-    replayed CUDA graph, eager call, plain version, bound, and the
-    ``scaled_dot_product_attention`` yardstick (forward for B3, its
-    backward for B4 + B5 together; timed here, never called by the port).
-    Returns {wrapper name: row}."""
+                       n_iter=10, plain_iter=3, seg=None):
+    """B3, B4 and B5 at the given (main-path) inputs, with segment ids
+    ``seg`` when given: device time in a replayed CUDA graph, eager call,
+    plain version, bound, and the ``scaled_dot_product_attention``
+    yardstick (forward for B3, its backward for B4 + B5 together; with ids,
+    under the block-diagonal causal boolean mask; timed here, never called
+    by the port).  Returns {wrapper name: row}."""
     import math
 
     import torch.nn.functional as F
@@ -659,14 +813,18 @@ def flash_kernel_times(torch, q, k, v, do, lens, causal, window, card,
     kw = dict(causal=causal, window=window, scale=1.0 / math.sqrt(d))
     ql = fa._lens(lens, b, n_q, q.device)
     kl = fa._lens(lens, b, n_k, q.device)
+    ids = dict(q_segment_ids=seg, kv_segment_ids=seg)
     o, lse = fa.flash_attention(q, k, v, q_lens=lens, kv_lens=lens,
-                                return_residuals=True, **kw)
+                                return_residuals=True, **ids, **kw)
     delta = (do.float() * o.float()).sum(dim=-1).contiguous()
     args = (q, k, v, do, lse, delta, ql, kl)
+    fwd_kw = dict(kw)
+    kw.update(q_seg=seg, kv_seg=seg)
     calls = {
         "flash_attention": (
             lambda: fa.flash_attention(q, k, v, q_lens=lens, kv_lens=lens,
-                                       return_residuals=True, **kw),
+                                       return_residuals=True, **ids,
+                                       **fwd_kw),
             lambda: fa.flash_attention_plain(q, k, v, ql, kl, **kw)),
         "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*args, **kw),
                          lambda: fa.flash_bwd_dq_plain(*args, **kw)),
@@ -678,14 +836,21 @@ def flash_kernel_times(torch, q, k, v, do, lens, causal, window, card,
     if lens is None and window is None and causal and q.shape[1] == k.shape[1]:
         qs, ks, vs = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
+        sdpa = dict(is_causal=True)
+        if seg is not None:
+            pos = torch.arange(n_q, device=q.device)
+            same = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None]
+                                                           != 0)
+            sdpa = dict(attn_mask=(same & (pos[None, :] <= pos[:, None])
+                                   )[:, None])
         fwd_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), n_iter)
-        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            q, k, v, **sdpa), n_iter)
+        out = F.scaled_dot_product_attention(qs, ks, vs, **sdpa)
         bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
             out, (qs, ks, vs), do, retain_graph=True), n_iter)
         library = {"flash_attention": fwd_ms, "flash_bwd_dq": bwd_ms,
                    "flash_bwd_dkv": bwd_ms}
-    bounds = _flash_bounds(torch, q, k, lens, causal, window)
+    bounds = _flash_bounds(torch, q, k, lens, causal, window, seg)
     rows = {}
     for name, (kernel, plain) in calls.items():
         ms, call_ms, plain_ms, plain_call_ms = _kernel_times(
@@ -698,12 +863,14 @@ def flash_kernel_times(torch, q, k, v, do, lens, causal, window, card,
                       "f32_simt_bound_ms": bd["f32_simt_bound_ms"]}
         lib = ("none" if library[name] is None
                else f"{library[name] * 1e3:.2f} us")
-        print(f"  {name} at B={b} H={q.shape[1]} G={k.shape[1]} N={n_q} "
+        form = "" if seg is None else "segmented "
+        print(f"  {form}{name} at B={b} H={q.shape[1]} G={k.shape[1]} N={n_q} "
               f"d={d} {str(q.dtype).split('.')[-1]}: device {ms * 1e3:.2f} "
               f"us (eager call {call_ms * 1e3:.2f} us), plain device "
               f"{plain_ms * 1e3:.2f} us (eager call {plain_call_ms * 1e3:.2f}"
               f" us), bound {bd['bound_ms'] * 1e3:.2f} us by "
-              f"{bd['bound_by']} ({bd['bytes']} B, {bd['flops']} flop at "
+              f"{bd['bound_by']} ({bd['bytes']} B, {bd['flops']} flop on "
+              f"{bd['pairs']} live pairs at "
               f"{bd['rate'] / 1e12:.0f} TFLOP/s; "
               f"{bd['f32_simt_bound_ms'] * 1e3:.2f} us at the f32 SIMT rate "
               f"the kernel computes at), {ms / bd['bound_ms']:.2f}x the "
@@ -851,25 +1018,42 @@ def phase3_small_softmax(torch, np) -> None:
           "relative")
 
 
-def phase3_small_packed(torch, np) -> None:
-    """The small f32 Aaren model on packed documents: loss and every
-    gradient on the card (segmented kernels) against the CPU (plain
-    versions), and the packed loss against per-document evaluation."""
+# Per mixer: the small model's keyword arguments, its documents (lengths,
+# numpy seed) and the row length they are packed into.  The softmax rows of
+# 96 hold a 70-token document and a 50 + 33 pair, so documents straddle the
+# flash kernels' 64-row tiles.
+SMALL_PACKED = {
+    "aaren": ({}, (30, 12, 1, 9, 6, 20, 5, 33), 120, 48),
+    "softmax": ({"attn_mode": "softmax", "n_kv_heads": 2},
+                (70, 20, 50, 33, 9, 1, 40), 121, 96),
+}
+
+
+def phase3_small_packed(torch, np, mode: str = "aaren") -> None:
+    """The small f32 model of ``mode`` (Aaren or softmax) on packed
+    documents: loss and every gradient on the card (segmented kernels)
+    against the CPU (plain versions), and the packed loss against
+    per-document evaluation."""
     from repro_torch.configs import smoke_config
     from repro_torch.data.packing import pack_documents
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.aaren_scan import aaren_scan
     from repro_torch.kernels.aaren_scan_bwd import aaren_scan_bwd
     from repro_torch.models.factory import build
     from repro_torch.tree import tree_leaves
 
-    small = build(smoke_config(ARCH))
+    kw, lens, seed, seq_len = SMALL_PACKED[mode]
+    small = build(smoke_config(ARCH, **kw))
     cpu_params = small.init(0, device="cpu")
-    rng = np.random.default_rng(120)
-    docs = [rng.integers(0, small.cfg.vocab, n)
-            for n in (30, 12, 1, 9, 6, 20, 5, 33)]
-    packed = pack_documents(docs, 48)
+    rng = np.random.default_rng(seed)
+    docs = [rng.integers(0, small.cfg.vocab, n) for n in lens]
+    packed = pack_documents(docs, seq_len)
+    wrappers = ((aaren_scan, aaren_scan_bwd) if mode == "aaren" else
+                (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv))
+    # The softmax gradients take tests/test_torch_flash.py's 1e-6 floor.
+    floor = 0.0 if mode == "aaren" else 1e-6
     losses, grads = {}, {}
-    launches = (aaren_scan.n_launches, aaren_scan_bwd.n_launches)
+    launches = [w.n_launches for w in wrappers]
     for dev in ("cpu", "cuda"):
         params = _to(cpu_params, dev)
         leaves = tree_leaves(params)
@@ -879,19 +1063,19 @@ def phase3_small_packed(torch, np) -> None:
         loss, _ = small.loss(params, batch)
         grads[dev] = torch.autograd.grad(loss, leaves)
         losses[dev] = loss.item()
-    _require(aaren_scan.n_launches > launches[0]
-             and aaren_scan_bwd.n_launches > launches[1],
-             "small packed model: the card path launched no scan kernel")
+    _require(all(w.n_launches > n for w, n in zip(wrappers, launches)),
+             f"small packed {mode} model: the card path skipped a kernel")
     rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-    _require(rel <= 1e-5, f"small packed model: loss on the card "
+    _require(rel <= 1e-5, f"small packed {mode} model: loss on the card "
              f"{losses['cuda']} != on the CPU {losses['cpu']}")
     gerr = 0.0
     for a, b in zip(grads["cuda"], grads["cpu"]):
-        err = (a.cpu() - b).abs().max().item() / max(b.abs().max().item(),
-                                                     1e-6)
-        _require(err <= TOL["rtol"], f"small packed model: a gradient "
-                 f"differs by {err:.3e} of its max between card and CPU")
-        gerr = max(gerr, err)
+        scale = b.abs().max().item()
+        err = (a.cpu() - b).abs().max().item()
+        _require(err <= TOL["rtol"] * max(scale, 1e-6) + floor,
+                 f"small packed {mode} model: a gradient differs by "
+                 f"{err:.3e} (max |CPU| {scale:.3e}) between card and CPU")
+        gerr = max(gerr, err / max(scale, 1e-6))
     card_params = _to(cpu_params, "cuda")
     total = count = 0
     with torch.no_grad():
@@ -903,11 +1087,11 @@ def phase3_small_packed(torch, np) -> None:
             total += loss.item() * (doc.size - 1)
             count += doc.size - 1
     per_doc = total / count
-    _require(abs(losses["cuda"] - per_doc) <= 1e-5, f"small packed model: "
-             f"packed loss {losses['cuda']} != per-document {per_doc}")
-    print(f"  small f32 packed model ({len(docs)} documents in "
-          f"{packed['tokens'].shape[0]} rows of 48): loss |card - CPU| / CPU "
-          f"= {rel:.2e}, |card - per-document| = "
+    _require(abs(losses["cuda"] - per_doc) <= 1e-5, f"small packed {mode} "
+             f"model: packed loss {losses['cuda']} != per-document {per_doc}")
+    print(f"  small f32 packed {mode} model ({len(docs)} documents in "
+          f"{packed['tokens'].shape[0]} rows of {seq_len}): loss |card - CPU|"
+          f" / CPU = {rel:.2e}, |card - per-document| = "
           f"{abs(losses['cuda'] - per_doc):.2e}; {len(grads['cpu'])} "
           f"gradients within {gerr:.2e} of max |CPU|")
 
@@ -1050,25 +1234,30 @@ class _PlainOnCard(Exception):
 
 
 def _forbid_plain_on_card():
-    """Make the scans' plain versions raise on CUDA tensors until the
+    """Make the plain versions of B1–B5 raise on CUDA tensors until the
     returned undo is called: proof that a main path ran only kernels."""
     from repro_torch.kernels import aaren_scan as b1_mod
     from repro_torch.kernels import aaren_scan_bwd as b2_mod
+    from repro_torch.kernels import flash_attention as fa
 
-    saved = (b1_mod.aaren_scan_plain, b2_mod.aaren_scan_bwd_plain)
+    plains = [(b1_mod, "aaren_scan_plain"), (b2_mod, "aaren_scan_bwd_plain"),
+              (fa, "flash_attention_plain"), (fa, "flash_bwd_dq_plain"),
+              (fa, "flash_bwd_dkv_plain")]
+    saved = [getattr(mod, name) for mod, name in plains]
 
     def guard(fn):
-        def wrapped(s, *args, **kw):
-            if s.is_cuda:
+        def wrapped(x, *args, **kw):
+            if x.is_cuda:
                 raise _PlainOnCard(f"{fn.__name__} reached with a CUDA tensor")
-            return fn(s, *args, **kw)
+            return fn(x, *args, **kw)
         return wrapped
 
-    b1_mod.aaren_scan_plain = guard(saved[0])
-    b2_mod.aaren_scan_bwd_plain = guard(saved[1])
+    for (mod, name), fn in zip(plains, saved):
+        setattr(mod, name, guard(fn))
 
     def undo():
-        b1_mod.aaren_scan_plain, b2_mod.aaren_scan_bwd_plain = saved
+        for (mod, name), fn in zip(plains, saved):
+            setattr(mod, name, fn)
     return undo
 
 
@@ -1260,10 +1449,15 @@ def phase4b_training(torch, np, card: str, cfg, packed: bool = False):
     return launches, out, errs
 
 
-def phase4c_softmax_training(torch, np, card: str, cfg):
-    """Training of the softmax ``cfg`` (full width in :func:`main`).
-    Returns ({kernel: launches}, {kernel: timing row at the training
-    shape}, {kernel: max |err| on the captured layer-0 inputs})."""
+def phase4c_softmax_training(torch, np, card: str, cfg,
+                             packed: bool = False):
+    """Training of the softmax ``cfg`` (full width in :func:`main`), on
+    ``SyntheticLMIterator`` batches or, with ``packed``, on
+    ``PackedLMIterator`` batches through ``pack_sequences=True`` and the
+    segmented kernels.  Returns ({kernel: launches}, {kernel: timing row at
+    the training shape}, {kernel: max |err| on the captured layer-0
+    inputs})."""
+    from repro_torch.data.packing import PackedLMIterator
     from repro_torch.data.synthetic import SyntheticLMIterator
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -1275,6 +1469,7 @@ def phase4c_softmax_training(torch, np, card: str, cfg):
 
     _require((cfg.attn_mode, cfg.remat, cfg.optimizer)
              == ("softmax", "block", "adamw"), str(cfg))
+    what = "packed softmax training" if packed else "softmax training"
     api = build(cfg)
     n_params = count_params(api.specs())
     steps = TRAIN_WARM + TRAIN_MEASURED
@@ -1286,23 +1481,27 @@ def phase4c_softmax_training(torch, np, card: str, cfg):
     torch.cuda.synchronize()
     print(f"  init {time.perf_counter() - ti:.2f} s: params + AdamW moments "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on card")
-    data = SyntheticLMIterator(vocab=cfg.vocab, seq_len=TRAIN_N,
-                               batch=TRAIN_B, seed=0)
+    data = (PackedLMIterator if packed else SyntheticLMIterator)(
+        vocab=cfg.vocab, seq_len=TRAIN_N, batch=TRAIN_B, seed=0)
 
     # In the first step B3 runs forward for layers 0..31, then the remat
     # recompute for 31..0; the backward runs for 31..0, so its last call
-    # is layer 0's: capture those inputs (cloning launches nothing).
+    # is layer 0's: capture those inputs (cloning launches nothing).  Every
+    # call of the run is counted, and those carrying segment ids apart.
     calls = {"fwd": 0, "bwd": 0}
+    with_ids = {"fwd": 0, "bwd": 0}
     captured = {}
     capturing = {"on": True}
     real_fwd, real_bwd = ops.flash_attention, ops.flash_attention_bwd
 
     def spy_fwd(*args, **kw):
+        with_ids["fwd"] += kw.get("q_segment_ids") is not None
         if capturing["on"]:
             calls["fwd"] += 1
         return real_fwd(*args, **kw)
 
     def spy_bwd(*args, **kw):
+        with_ids["bwd"] += kw.get("q_segment_ids") is not None
         if capturing["on"]:
             if calls["bwd"] == cfg.n_layers - 1:
                 captured["args"] = [a.clone() for a in args]
@@ -1311,27 +1510,33 @@ def phase4c_softmax_training(torch, np, card: str, cfg):
         return real_bwd(*args, **kw)
 
     finite = {"ok": True}
-    losses = []
+    losses, utils = [], []
 
     def on_log(step, m):
         capturing["on"] = False
         finite["ok"] &= bool(np.isfinite(m["loss"])
                              and np.isfinite(m["grad_norm"]))
         losses.append(m["loss"])
+        utils.append(m.get("token_util", 1.0))
+        util = (f" token_util {m['token_util']:.4f}" if "token_util" in m
+                else "")
         print(f"  step {step}: loss {m['loss']:.4f} grad_norm "
-              f"{m['grad_norm']:.4f} {m['step_time_s'] * 1e3:.1f} ms")
+              f"{m['grad_norm']:.4f} {m['step_time_s'] * 1e3:.1f} ms{util}")
 
     ops.flash_attention, ops.flash_attention_bwd = spy_fwd, spy_bwd
+    undo = _forbid_plain_on_card()
     torch.cuda.reset_peak_memory_stats()
     # The main path: counts from zero, read right after.
     fa.flash_attention.n_launches = 0
     fa.flash_bwd_dq.n_launches = fa.flash_bwd_dkv.n_launches = 0
     try:
-        result = run_train_loop(step_fn, state, data,
-                                LoopConfig(total_steps=steps, log_every=1),
-                                on_log=on_log)
+        result = run_train_loop(
+            step_fn, state, data,
+            LoopConfig(total_steps=steps, log_every=1, pack_sequences=packed),
+            on_log=on_log)
     finally:
         ops.flash_attention, ops.flash_attention_bwd = real_fwd, real_bwd
+        undo()
     launches = {"flash_attention": fa.flash_attention.n_launches,
                 "flash_bwd_dq": fa.flash_bwd_dq.n_launches,
                 "flash_bwd_dkv": fa.flash_bwd_dkv.n_launches}
@@ -1347,26 +1552,38 @@ def phase4c_softmax_training(torch, np, card: str, cfg):
             "flash_bwd_dq": cfg.n_layers * steps,
             "flash_bwd_dkv": cfg.n_layers * steps}
     _require(launches == want, f"launches {launches}, want {want}")
-    print(f"  launches on the softmax training path over {steps} steps: B3 "
+    want_ids = ({"fwd": want["flash_attention"], "bwd": want["flash_bwd_dq"]}
+                if packed else {"fwd": 0, "bwd": 0})
+    _require(with_ids == want_ids, f"calls with segment ids {with_ids}, want "
+             f"{want_ids}")
+    form = "segmented " if packed else ""
+    print(f"  launches on the {what} path over {steps} steps: {form}B3 "
           f"{launches['flash_attention']} = 2 x {cfg.n_layers} x {steps}, "
-          f"B4 {launches['flash_bwd_dq']} and B5 {launches['flash_bwd_dkv']}"
-          f" = {cfg.n_layers} x {steps}")
+          f"{form}B4 {launches['flash_bwd_dq']} and {form}B5 "
+          f"{launches['flash_bwd_dkv']} = {cfg.n_layers} x {steps}; no plain "
+          "flash version reached a CUDA tensor")
 
     q, k, v, o, lse, do = captured["args"]
     kw = captured["kw"]
+    seg = kw.get("q_segment_ids")
     _require(kw.get("q_lens") is None and kw.get("window") is None
-             and kw.get("causal", True), f"layer 0's flash call: {kw}")
+             and kw.get("causal", True) and (seg is not None) == packed
+             and (seg is None or torch.equal(kw["kv_segment_ids"], seg)),
+             f"layer 0's flash call: {sorted(kw)}")
     errs = _check_flash(torch, q, k, v, do, None, True, None,
-                        "training step, layer 0 (captured)")
+                        f"{what} step, layer 0 (captured)", seg=seg)
 
     step_s = [m["step_time_s"] for _, m in result.history[TRAIN_WARM:]]
     step_ms = statistics.median(step_s) * 1e3
     tokens = TRAIN_B * TRAIN_N
+    util = statistics.mean(utils[TRAIN_WARM:])
     mfu = 6 * n_params * tokens / (step_ms / 1e3) / BF16_DENSE_FLOPS
     each = ", ".join(f"{s * 1e3:.1f}" for s in step_s)
-    print(f"  softmax training B={TRAIN_B} N={TRAIN_N}: step median "
+    real = (f", real tokens/s {tokens * util / (step_ms / 1e3):.1f} "
+            f"(token_util {util:.4f})" if packed else "")
+    print(f"  {what} B={TRAIN_B} N={TRAIN_N}: step median "
           f"{step_ms:.3f} ms over {len(step_s)} steps ({each} ms), "
-          f"{tokens / (step_ms / 1e3):.1f} tokens/s  [{card}]")
+          f"{tokens / (step_ms / 1e3):.1f} tokens/s{real}  [{card}]")
     print(f"  peak memory allocated {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)  [{card}]")
     print(f"  MFU {mfu:.2%}: 6 x {n_params} params x {tokens} tokens per "
@@ -1382,12 +1599,13 @@ def phase4c_softmax_training(torch, np, card: str, cfg):
     def one_step():
         train_state["state"], _ = step_fn(train_state["state"], batch)
 
-    _print_profile(_device_profile(torch, one_step, 1), "softmax train step",
+    _print_profile(_device_profile(torch, one_step, 1), f"{what} step",
                    card, top=16)
     del train_state, result, state, params
     gc.collect()
     torch.cuda.empty_cache()
-    rows = flash_kernel_times(torch, q, k, v, do, None, True, None, card)
+    rows = flash_kernel_times(torch, q, k, v, do, None, True, None, card,
+                              seg=seg)
     return launches, rows, errs
 
 
@@ -1481,9 +1699,11 @@ def main() -> int:
     b1_err, b2_err = phase3_kernels(torch, np)
     seg_b1_err, seg_b2_err = phase3_segmented_kernels(torch, np)
     flash_errs = phase3_flash_kernels(torch, np)
+    seg_flash_errs = phase3_segmented_flash_kernels(torch, np)
     phase3_small_model(torch, np)
     phase3_small_softmax(torch, np)
     phase3_small_packed(torch, np)
+    phase3_small_packed(torch, np, "softmax")
 
     # 4. Full-width serving ------------------------------------------------
     _phase("4 full-width serving", t0)
@@ -1527,6 +1747,14 @@ def main() -> int:
                                                           cfg, packed=True)
     seg_b1_err = max(seg_b1_err, errs["aaren_scan"])
     seg_b2_err = max(seg_b2_err, errs["aaren_scan_bwd"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4f. Full-width packed softmax training (segmented B3, B4, B5) ---------
+    _phase("4f full-width packed softmax training", t0)
+    seg_soft_launches, seg_flash_rows, errs = phase4c_softmax_training(
+        torch, np, card, soft_cfg, packed=True)
+    seg_flash_errs = {k: max(v, errs[k]) for k, v in seg_flash_errs.items()}
 
     # 5. Results ---------------------------------------------------------------
     _phase("5 results", t0)
@@ -1584,6 +1812,25 @@ def main() -> int:
                         "flash_attention" else "scaled_dot_product_attention"
                         " backward, B4 + B5 together"),
             "shape": "training, layer 0: B=4 H=G=32 N=1024 d=96 bf16 causal"})
+    for name, source, line, _ in flash_meta:
+        row = seg_flash_rows[name]
+        kernels.append({
+            "name": f"{name}_segmented", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/flash_attention.py{line} "
+                        "(segment ids)",
+            "launches": seg_soft_launches[name],
+            "launches_by_path": {"serve": 0,
+                                 "train_packed": seg_soft_launches[name]},
+            "max_abs_err": seg_flash_errs[name],
+            **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+            "library": ("scaled_dot_product_attention forward" if name ==
+                        "flash_attention" else "scaled_dot_product_attention"
+                        " backward, B4 + B5 together") + ", block-diagonal "
+                       "causal boolean mask",
+            "shape": "packed training, layer 0: B=4 H=G=32 N=1024 d=96 bf16 "
+                     "causal, segment ids"})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,5 @@
 """Softmax attention, the paper's baseline, and its KV-cache decode — port
-of ``repro.core.softmax_attention`` (without packed-segment ids, which come
-with ROADMAP queue A item 7).
+of ``repro.core.softmax_attention``, packed-segment ids included.
 
 Activations are ``(B, N, H, d)``; GQA has ``G = kv_heads`` dividing ``H``,
 query head ``h`` reading kv head ``h // (H/G)``.  These are the dense
@@ -45,15 +44,21 @@ def attention_mask(n_q: int, n_k: int, *, causal: bool = True,
                    window: int | None = None,
                    q_lens: torch.Tensor | None = None,
                    kv_lens: torch.Tensor | None = None,
+                   q_segment_ids: torch.Tensor | None = None,
+                   kv_segment_ids: torch.Tensor | None = None,
                    q_offset: int = 0, device=None) -> torch.Tensor:
     """(B-or-1, 1, Nq, Nk) boolean validity mask — the one shared builder.
 
     Causal and window compare absolute positions (``q_offset`` is the
     absolute position of query row 0); ``q_lens`` (B,) counts the valid
     local query rows and ``kv_lens`` (B,) the valid keys.
+    ``q_segment_ids``/``kv_segment_ids`` (B, Nq)/(B, Nk): packed-segment
+    ids; a pair is live only when both carry the same nonzero id (0 is
+    padding).  One side alone stands for both, as in the JAX package.
     """
     if device is None:
-        device = next((t.device for t in (q_lens, kv_lens) if t is not None),
+        device = next((t.device for t in (q_lens, kv_lens, q_segment_ids,
+                                          kv_segment_ids) if t is not None),
                       torch.device("cpu"))
     q_pos = torch.arange(n_q, device=device)[:, None] + q_offset
     k_pos = torch.arange(n_k, device=device)[None, :]
@@ -68,6 +73,12 @@ def attention_mask(n_q: int, n_k: int, *, causal: bool = True,
         mask = mask & (row[None, None] < q_lens[:, None, None, None])
     if kv_lens is not None:
         mask = mask & (k_pos[None, None] < kv_lens[:, None, None, None])
+    if q_segment_ids is not None or kv_segment_ids is not None:
+        seg_q = q_segment_ids if q_segment_ids is not None else kv_segment_ids
+        seg_k = kv_segment_ids if kv_segment_ids is not None else q_segment_ids
+        sq = seg_q.to(device)[:, None, :, None]          # (B, 1, Nq, 1)
+        sk = seg_k.to(device)[:, None, None, :]          # (B, 1, 1, Nk)
+        mask = mask & (sq == sk) & (sq != 0)
     return mask
 
 
@@ -75,11 +86,14 @@ def multihead_attention(q, k, v, *, causal: bool = True,
                         window: int | None = None, q_offset: int = 0,
                         lengths: torch.Tensor | None = None,
                         q_lens: torch.Tensor | None = None,
+                        segment_ids: torch.Tensor | None = None,
                         scale: float | None = None) -> torch.Tensor:
-    """softmax(q k^T) v under causal / window / length masks.
+    """softmax(q k^T) v under causal / window / length / segment masks.
 
     q: (B, Nq, H, d); k, v: (B, Nk, G, d).  ``lengths`` (B,): valid keys;
-    ``q_lens`` (B,): valid query rows (the rest read 0).  The window applies
+    ``q_lens`` (B,): valid query rows (the rest read 0).  ``segment_ids``
+    (B, N): packed-segment ids for self-attention (Nq == Nk); attention
+    never crosses a segment and padding (id 0) reads 0.  The window applies
     only with ``causal``, as in the JAX package.  Returns (B, Nq, H, d).
     """
     _, n_q, h, d = q.shape
@@ -91,7 +105,9 @@ def multihead_attention(q, k, v, *, causal: bool = True,
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     mask = attention_mask(n_q, n_k, causal=causal,
                           window=window if causal else None,
-                          q_lens=q_lens, kv_lens=lengths, q_offset=q_offset,
+                          q_lens=q_lens, kv_lens=lengths,
+                          q_segment_ids=segment_ids,
+                          kv_segment_ids=segment_ids, q_offset=q_offset,
                           device=q.device)
     s = torch.where(mask, s, NEG_INF)
     p = masked_softmax(s, mask)

@@ -4,8 +4,8 @@
 // Replaces the Pallas TPU kernel `flash_attention_bwd` in
 // src/repro/kernels/flash_attention.py (wrapper at :472; dq pallas_call at
 // :548, body `_flash_bwd_dq_kernel`; dk/dv pallas_call at :581, body
-// `_flash_bwd_dkv_kernel`; both through `_recompute_p_ds`), without
-// packed-segment ids.  From the forward's residual lse and
+// `_flash_bwd_dkv_kernel`; both through `_recompute_p_ds`), both branches:
+// with and without packed-segment ids.  From the forward's residual lse and
 // delta_i = do_i . o_i (computed by the wrapper):
 //
 //   p_ij  = exp(s_ij - lse_i) on the mask, 0 off it
@@ -16,7 +16,8 @@
 //
 // Re-applying the mask after the exp keeps the rows of empty queries (lse =
 // NEG_INF, where exp(s - lse) would be 1) at p = 0, so masked queries get
-// dq = 0 and masked keys dk = dv = 0.
+// dq = 0 and masked keys dk = dv = 0.  The mask is the forward's: length,
+// causal, window and, for packed rows (SEG), equal nonzero segment ids.
 //
 // Design.  B4 has B3's grid: one block per (b, h, 64-row q-tile) walking the
 // kv tiles the q-tile can see, with Q and dO staged for the whole walk; per
@@ -27,7 +28,11 @@
 // far edge and q_len), and accumulates dv += P^T dO and dk += dS^T Q in f32
 // registers.  The Pallas kernel accumulates per query head and the wrapper
 // group-sums; summing over the group inside the block writes kv-head
-// outputs once.  IEEE f32 throughout: fmaf, expf; bf16 converted on load.
+// outputs once.  With segment ids both kernels skip, before loading it, a
+// tile whose nonzero-id range is disjoint from the block's own tile or
+// that is all padding (`_block_relevant`, as in flash_fwd.cu), and hold
+// each thread's row and column ids in registers for the per-pair mask.
+// IEEE f32 throughout: fmaf, expf; bf16 converted on load.
 //
 // Bound.  On phi3-mini-3.8b's training shape (B = 4, H = G = 32, N = 1024,
 // d = 96, causal, bf16 in) B4 does three products (S, dP, dS K), 38.7 GFLOP,
@@ -40,14 +45,16 @@
 #include "flash_common.cuh"
 
 // B4: dq.
-template <typename T, int NK, int BQ, int BK>
+template <typename T, int NK, int BQ, int BK, bool SEG>
 __global__ void __launch_bounds__(FLASH_THREADS)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         const int* __restrict__ q_lens,
-                        const int* __restrict__ kv_lens, T* __restrict__ dq,
+                        const int* __restrict__ kv_lens,
+                        const int* __restrict__ q_seg,
+                        const int* __restrict__ kv_seg, T* __restrict__ dq,
                         int H, int G, int Nq, int Nk, int d, float scale,
                         int causal, int window) {
   constexpr int RI = BQ / 16, CJ = BK / 16, LD = 16 * NK + 4, PS = BQ + 4;
@@ -79,9 +86,31 @@ __global__ void __launch_bounds__(FLASH_THREADS)
     for (int kk = 0; kk < NK; ++kk) acc[i][kk] = 0.f;
   }
 
+  const int* qs_row = SEG ? q_seg + (long long)b * Nq : nullptr;
+  const int* ks_row = SEG ? kv_seg + (long long)b * Nk : nullptr;
+  int sq[RI], q_lo = 0, q_hi = 0;
+#pragma unroll
+  for (int i = 0; i < RI; ++i) sq[i] = 0;
+  if constexpr (SEG) {
+#pragma unroll
+    for (int i = 0; i < RI; ++i) sq[i] = seg_at(qs_row, q0 + ty * RI + i, Nq);
+    seg_range<BQ>(qs_row, q0, Nq, &q_lo, &q_hi);
+  }
+
   int kbeg, kend;
   key_range(q0, BQ, Nq, Nk, q_len, kv_len, causal, window, BK, &kbeg, &kend);
+  if (SEG && q_lo > q_hi) kend = kbeg;
   for (int k0 = kbeg; k0 < kend; k0 += BK) {
+    int sk[CJ];
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) sk[j] = 0;
+    if constexpr (SEG) {
+      int k_lo, k_hi;
+      seg_range<BK>(ks_row, k0, Nk, &k_lo, &k_hi);
+      if (!seg_overlap(q_lo, q_hi, k_lo, k_hi)) continue;  // uniform
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) sk[j] = seg_at(ks_row, k0 + tx + 16 * j, Nk);
+    }
     __syncthreads();
     load_tile<T, BK, LD>(sK, k + kv_base, k0, Nk, d);
     load_tile<T, BK, LD>(sV, v + kv_base, k0, Nk, d);
@@ -95,8 +124,8 @@ __global__ void __launch_bounds__(FLASH_THREADS)
       const int qp = q0 + ty * RI + i;
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
-        const bool ok =
-            pair_valid(qp, k0 + tx + 16 * j, q_len, kv_len, causal, window);
+        const bool ok = pair_valid<SEG>(qp, k0 + tx + 16 * j, q_len, kv_len,
+                                        causal, window, sq[i], sk[j]);
         const float p = ok ? expf(s[i][j] * scale - L[i]) : 0.f;
         sS[(tx + 16 * j) * PS + ty * RI + i] = p * (dp[i][j] - D[i]);
       }
@@ -119,14 +148,16 @@ __global__ void __launch_bounds__(FLASH_THREADS)
 }
 
 // B5: dk and dv.  Rows of the score tile are keys, columns queries.
-template <typename T, int NK, int KT, int QT>
+template <typename T, int NK, int KT, int QT, bool SEG>
 __global__ void __launch_bounds__(FLASH_THREADS)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          const int* __restrict__ q_lens,
-                         const int* __restrict__ kv_lens, T* __restrict__ dk,
+                         const int* __restrict__ kv_lens,
+                         const int* __restrict__ q_seg,
+                         const int* __restrict__ kv_seg, T* __restrict__ dk,
                          T* __restrict__ dv, int H, int G, int Nq, int Nk,
                          int d, float scale, int causal, int window) {
   constexpr int RJ = KT / 16, CI = QT / 16, LD = 16 * NK + 4, PS = KT + 4;
@@ -163,10 +194,33 @@ __global__ void __launch_bounds__(FLASH_THREADS)
   if (khi <= k0) qend = 0;
   qbeg = (qbeg / QT) * QT;
 
+  // Segment ids of this thread's key rows, and the kv-tile's id range.
+  const int* qs_row = SEG ? q_seg + (long long)b * Nq : nullptr;
+  const int* ks_row = SEG ? kv_seg + (long long)b * Nk : nullptr;
+  int sk[RJ], k_lo = 0, k_hi = 0;
+#pragma unroll
+  for (int r = 0; r < RJ; ++r) sk[r] = 0;
+  if constexpr (SEG) {
+#pragma unroll
+    for (int r = 0; r < RJ; ++r) sk[r] = seg_at(ks_row, k0 + ty * RJ + r, Nk);
+    seg_range<KT>(ks_row, k0, Nk, &k_lo, &k_hi);
+    if (k_lo > k_hi) qend = qbeg;  // an all-padding kv-tile is seen by none
+  }
+
   for (int hh = 0; hh < group; ++hh) {
     const int h = g * group + hh;
     const long long row_base = ((long long)b * H + h) * Nq;
     for (int q0 = qbeg; q0 < qend; q0 += QT) {
+      int sq[CI];
+#pragma unroll
+      for (int c = 0; c < CI; ++c) sq[c] = 0;
+      if constexpr (SEG) {
+        int q_lo, q_hi;
+        seg_range<QT>(qs_row, q0, Nq, &q_lo, &q_hi);
+        if (!seg_overlap(q_lo, q_hi, k_lo, k_hi)) continue;  // uniform
+#pragma unroll
+        for (int c = 0; c < CI; ++c) sq[c] = seg_at(qs_row, q0 + tx + 16 * c, Nq);
+      }
       __syncthreads();
       load_tile<T, QT, LD>(sQ, q + row_base * d, q0, Nq, d);
       load_tile<T, QT, LD>(sO, dout + row_base * d, q0, Nq, d);
@@ -186,8 +240,8 @@ __global__ void __launch_bounds__(FLASH_THREADS)
 #pragma unroll
         for (int c = 0; c < CI; ++c) {
           const int ql = tx + 16 * c;
-          const bool ok =
-              pair_valid(q0 + ql, kp, q_len, kv_len, causal, window);
+          const bool ok = pair_valid<SEG>(q0 + ql, kp, q_len, kv_len, causal,
+                                          window, sq[c], sk[r]);
           const float p = ok ? expf(s[r][c] * scale - sL[ql]) : 0.f;
           sP[ql * PS + ty * RJ + r] = p;
           sS[ql * PS + ty * RJ + r] = p * (dp[r][c] - sD[ql]);
@@ -214,46 +268,48 @@ __global__ void __launch_bounds__(FLASH_THREADS)
   }
 }
 
-template <typename T, int NK>
+template <typename T, int NK, bool SEG>
 static int launch_dq(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
-                     const int* q_lens, const int* kv_lens, void* dq, int B,
-                     int H, int G, int Nq, int Nk, int d, float scale,
-                     int causal, int window, cudaStream_t stream) {
+                     const int* q_lens, const int* kv_lens, const int* q_seg,
+                     const int* kv_seg, void* dq, int B, int H, int G, int Nq,
+                     int Nk, int d, float scale, int causal, int window,
+                     cudaStream_t stream) {
   constexpr int BQ = 64, BK = NK > 8 ? 32 : 64, LD = 16 * NK + 4;
   constexpr size_t smem = sizeof(float) * ((size_t)(2 * BQ + 2 * BK) * LD +
                                            (size_t)BK * (BQ + 4));
-  auto kernel = flash_bwd_dq_kernel<T, NK, BQ, BK>;
+  auto kernel = flash_bwd_dq_kernel<T, NK, BQ, BK, SEG>;
   static std::atomic<unsigned long long> smem_set{0};
   const cudaError_t err = set_smem_once(smem_set, kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Nq + BQ - 1) / BQ, H, B);
   kernel<<<grid, FLASH_THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      q_lens, kv_lens, (T*)dq, H, G, Nq, Nk, d, scale, causal, window);
+      q_lens, kv_lens, q_seg, kv_seg, (T*)dq, H, G, Nq, Nk, d, scale, causal,
+      window);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NK>
+template <typename T, int NK, bool SEG>
 static int launch_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
-                      const int* q_lens, const int* kv_lens, void* dk,
-                      void* dv, int B, int H, int G, int Nq, int Nk, int d,
-                      float scale, int causal, int window,
-                      cudaStream_t stream) {
+                      const int* q_lens, const int* kv_lens, const int* q_seg,
+                      const int* kv_seg, void* dk, void* dv, int B, int H,
+                      int G, int Nq, int Nk, int d, float scale, int causal,
+                      int window, cudaStream_t stream) {
   constexpr int KT = NK > 8 ? 32 : 64, QT = KT, LD = 16 * NK + 4;
   constexpr size_t smem =
       sizeof(float) * ((size_t)(2 * KT + 2 * QT) * LD +
                        2 * (size_t)QT * (KT + 4) + 2 * (size_t)QT);
-  auto kernel = flash_bwd_dkv_kernel<T, NK, KT, QT>;
+  auto kernel = flash_bwd_dkv_kernel<T, NK, KT, QT, SEG>;
   static std::atomic<unsigned long long> smem_set{0};
   const cudaError_t err = set_smem_once(smem_set, kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Nk + KT - 1) / KT, G, B);
   kernel<<<grid, FLASH_THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      q_lens, kv_lens, (T*)dk, (T*)dv, H, G, Nq, Nk, d, scale, causal,
-      window);
+      q_lens, kv_lens, q_seg, kv_seg, (T*)dk, (T*)dv, H, G, Nq, Nk, d, scale,
+      causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -271,54 +327,63 @@ static int launch_dkv(const void* q, const void* k, const void* v,
       return CALL(16);             \
   }
 
-static bool bad_shape(int B, int H, int G, int Nq, int Nk, int d) {
+static bool bad_args(int B, int H, int G, int Nq, int Nk, int d,
+                     const int* q_seg, const int* kv_seg) {
   return B <= 0 || H <= 0 || G <= 0 || H % G != 0 || Nq <= 0 || Nk <= 0 ||
-         d <= 0 || d > FLASH_MAX_D;
+         d <= 0 || d > FLASH_MAX_D || (q_seg == nullptr) != (kv_seg == nullptr);
 }
 
 extern "C" {
 
 int flash_bwd_max_d() { return FLASH_MAX_D; }
 
-// Shapes and dtypes as flash_fwd; dout like q; lse and delta (B, H, Nq)
-// f32; dq like q.  Launches on `stream`; does not synchronise and allocates
-// nothing.  Returns cudaGetLastError() after the launch.
+// Shapes and dtypes as flash_fwd, segment ids included; dout like q; lse
+// and delta (B, H, Nq) f32; dq like q.  Launches on `stream`; does not
+// synchronise and allocates nothing.  Returns cudaGetLastError() after the
+// launch.
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* delta,
-                 const int* q_lens, const int* kv_lens, void* dq, int B,
-                 int H, int G, int Nq, int Nk, int d, float scale, int causal,
-                 int window, int is_bf16, void* stream) {
-  if (bad_shape(B, H, G, Nq, Nk, d)) return (int)cudaErrorInvalidValue;
+                 const int* q_lens, const int* kv_lens, const int* q_seg,
+                 const int* kv_seg, void* dq, int B, int H, int G, int Nq,
+                 int Nk, int d, float scale, int causal, int window,
+                 int is_bf16, void* stream) {
+  if (bad_args(B, H, G, Nq, Nk, d, q_seg, kv_seg))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+#define DQ_ARGS                                                             \
+  q, k, v, dout, lse, delta, q_lens, kv_lens, q_seg, kv_seg, dq, B, H, G,   \
+      Nq, Nk, d, scale, causal, window, s
 #define DQ_CALL(NK)                                                         \
-  (is_bf16 ? launch_dq<__nv_bfloat16, NK>(q, k, v, dout, lse, delta,       \
-                                          q_lens, kv_lens, dq, B, H, G, Nq, \
-                                          Nk, d, scale, causal, window, s)  \
-           : launch_dq<float, NK>(q, k, v, dout, lse, delta, q_lens,       \
-                                  kv_lens, dq, B, H, G, Nq, Nk, d, scale,  \
-                                  causal, window, s))
+  (is_bf16 ? (q_seg ? launch_dq<__nv_bfloat16, NK, true>(DQ_ARGS)          \
+                    : launch_dq<__nv_bfloat16, NK, false>(DQ_ARGS))        \
+           : (q_seg ? launch_dq<float, NK, true>(DQ_ARGS)                  \
+                    : launch_dq<float, NK, false>(DQ_ARGS)))
   FLASH_BWD_SWITCH(DQ_CALL)
 #undef DQ_CALL
+#undef DQ_ARGS
 }
 
 // dk/dv like k/v, written for every kv head (group-summed in the block).
 int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const float* delta,
-                  const int* q_lens, const int* kv_lens, void* dk, void* dv,
-                  int B, int H, int G, int Nq, int Nk, int d, float scale,
-                  int causal, int window, int is_bf16, void* stream) {
-  if (bad_shape(B, H, G, Nq, Nk, d)) return (int)cudaErrorInvalidValue;
+                  const int* q_lens, const int* kv_lens, const int* q_seg,
+                  const int* kv_seg, void* dk, void* dv, int B, int H, int G,
+                  int Nq, int Nk, int d, float scale, int causal, int window,
+                  int is_bf16, void* stream) {
+  if (bad_args(B, H, G, Nq, Nk, d, q_seg, kv_seg))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define DKV_CALL(NK)                                                         \
-  (is_bf16 ? launch_dkv<__nv_bfloat16, NK>(q, k, v, dout, lse, delta,       \
-                                           q_lens, kv_lens, dk, dv, B, H, G, \
-                                           Nq, Nk, d, scale, causal, window, \
-                                           s)                                \
-           : launch_dkv<float, NK>(q, k, v, dout, lse, delta, q_lens,       \
-                                   kv_lens, dk, dv, B, H, G, Nq, Nk, d,     \
-                                   scale, causal, window, s))
+#define DKV_ARGS                                                            \
+  q, k, v, dout, lse, delta, q_lens, kv_lens, q_seg, kv_seg, dk, dv, B, H,  \
+      G, Nq, Nk, d, scale, causal, window, s
+#define DKV_CALL(NK)                                                        \
+  (is_bf16 ? (q_seg ? launch_dkv<__nv_bfloat16, NK, true>(DKV_ARGS)        \
+                    : launch_dkv<__nv_bfloat16, NK, false>(DKV_ARGS))      \
+           : (q_seg ? launch_dkv<float, NK, true>(DKV_ARGS)                \
+                    : launch_dkv<float, NK, false>(DKV_ARGS)))
   FLASH_BWD_SWITCH(DKV_CALL)
 #undef DKV_CALL
+#undef DKV_ARGS
 }
 
 const char* flash_bwd_error_string(int code) {

@@ -3,7 +3,10 @@
 // Layout.  q/o/do are (B, H, Nq, d), k/v are (B, G, Nk, d), contiguous,
 // f32 or bf16; lse and delta are (B, H, Nq) f32; q_lens and kv_lens are
 // (B,) int32, already clamped to [0, Nq] and [0, Nk] by the wrapper.  GQA:
-// query head h reads kv head h / (H / G).
+// query head h reads kv head h / (H / G).  Packed rows: q_seg (B, Nq) and
+// kv_seg (B, Nk) int32 segment ids, or both null; each kernel is
+// instantiated for SEG true and false, and a null pointer runs the SEG =
+// false code, which reads no id.
 //
 // Tiles.  Every block runs 256 threads as a 16 x 16 grid (ty, tx).  A score
 // tile of ROWS x COLS gives thread (ty, tx) rows ty*RI + i (RI = ROWS/16)
@@ -21,6 +24,7 @@
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <climits>
 
 #define FLASH_THREADS 256
 // -0.7 * FLT_MAX, the JAX package's finite "minus infinity".
@@ -137,21 +141,66 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-// The validity of a (query, key) pair: the Pallas kernels' _tile_mask
-// without segments.  window < 0 means no window.
+// The validity of a (query, key) pair: the Pallas kernels' _tile_mask.
+// window < 0 means no window.  With SEG, sq and sk are the pair's segment
+// ids, and the pair is live only when they are equal and not padding (0).
+template <bool SEG>
 __device__ __forceinline__ bool pair_valid(int qp, int kp, int q_len,
-                                           int kv_len, int causal,
-                                           int window) {
+                                           int kv_len, int causal, int window,
+                                           int sq, int sk) {
   bool ok = qp < q_len && kp < kv_len;
   if (causal) ok = ok && kp <= qp;
   if (window >= 0) ok = ok && kp > qp - window;
+  if (SEG) ok = ok && sq == sk && sq != 0;
   return ok;
 }
 
-// Keys [*kbeg, *kend) that queries [q0, q0 + rows) can see; empty when no
-// query of the tile is live.  kbeg is rounded down to a multiple of `bk`.
-// Tiles outside the range are fully masked, so skipping them changes no
-// output: a masked tile leaves (m, l, acc) as they were.
+// The segment id at position p of a row of n ids, 0 (padding) past n.
+__device__ __forceinline__ int seg_at(const int* row, int p, int n) {
+  return p < n ? row[p] : 0;
+}
+
+// The range [lo, hi] of the nonzero ids at positions [p0, p0 + N) of a row
+// of n ids, computed by every warp on its own (no shared memory, no
+// barrier); lo > hi when the span is all padding.  The Pallas kernels'
+// _block_relevant takes the range over every id of the tile; leaving the
+// padding id out only narrows the range, and id 0 matches nothing.
+template <int N>
+__device__ __forceinline__ void seg_range(const int* row, int p0, int n,
+                                          int* lo, int* hi) {
+  const int lane = threadIdx.x & 31;
+  int mn = INT_MAX, mx = INT_MIN;
+#pragma unroll
+  for (int t = lane; t < N; t += 32) {
+    const int id = seg_at(row, p0 + t, n);
+    if (id != 0) {
+      mn = min(mn, id);
+      mx = max(mx, id);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  }
+  *lo = mn;
+  *hi = mx;
+}
+
+// _block_relevant's segment test: can two tiles with these id ranges hold
+// an equal nonzero pair?  Exact for monotone ids, conservative otherwise:
+// it only drops tiles that the per-pair mask would mask in full.
+__device__ __forceinline__ bool seg_overlap(int lo_a, int hi_a, int lo_b,
+                                            int hi_b) {
+  return lo_a <= hi_a && lo_b <= hi_b && hi_a >= lo_b && hi_b >= lo_a;
+}
+
+// Keys [*kbeg, *kend) that queries [q0, q0 + rows) can see by length,
+// causality and window; empty when no query of the tile is live.  kbeg is
+// rounded down to a multiple of `bk`.  Tiles outside the range are fully
+// masked, so skipping them changes no output: a masked tile leaves (m, l,
+// acc) as they were.  With segment ids each tile inside the range is
+// tested again (seg_overlap).
 __device__ __forceinline__ void key_range(int q0, int rows, int nq, int nk,
                                           int q_len, int kv_len, int causal,
                                           int window, int bk, int* kbeg,

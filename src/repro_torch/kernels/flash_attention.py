@@ -2,13 +2,16 @@
 versions and the wrappers that pick between them by device.
 
 Port of the Pallas TPU kernels ``repro.kernels.flash_attention``
-(``flash_attention`` and ``flash_attention_bwd``) without packed-segment
-ids.  q: (B, H, Nq, d); k/v: (B, G, Nk, d), G | H, query head ``h``
-reading kv head ``h // (H/G)``.  Causal and sliding-window masks compare
-local positions; ``q_lens``/``kv_lens`` (B,) mask each row's tail and are
-clamped to ``[0, N]`` as the JAX wrapper's ``_as_lens`` does.  A query with
-no live key reads ``o = 0`` with ``lse = NEG_INF`` and gets ``dq = 0``; a
-masked key gets ``dk = dv = 0``.
+(``flash_attention`` and ``flash_attention_bwd``).  q: (B, H, Nq, d); k/v:
+(B, G, Nk, d), G | H, query head ``h`` reading kv head ``h // (H/G)``.
+Causal and sliding-window masks compare local positions;
+``q_lens``/``kv_lens`` (B,) mask each row's tail and are clamped to
+``[0, N]`` as the JAX wrapper's ``_as_lens`` does.  Packed rows:
+``q_segment_ids``/``kv_segment_ids`` (B, Nq)/(B, Nk) int32 keep a pair
+live only when both carry the same nonzero id (0 is padding), and the
+kernels skip a tile whose id ranges are disjoint or that is all padding.
+A query with no live key reads ``o = 0`` with ``lse = NEG_INF`` and gets
+``dq = 0``; a masked key gets ``dk = dv = 0``.
 
 Three kernels, three wrappers (each counts its launches in
 ``n_launches``):
@@ -47,22 +50,25 @@ DTYPES = (torch.float32, torch.bfloat16)
 # ---------------------------------------------------------------------------
 
 
-def _scores(q, k, q_lens, kv_lens, causal, window, scale):
+def _scores(q, k, q_lens, kv_lens, causal, window, scale, q_seg, kv_seg):
     """f32 scores (B, H, Nq, Nk) with NEG_INF off the mask, and the mask."""
     h, g = q.shape[1], k.shape[1]
     ke = torch.repeat_interleave(k, h // g, dim=1).float()
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), ke) * scale
     mask = attention_mask(q.shape[2], k.shape[2], causal=causal,
                           window=window, q_lens=q_lens, kv_lens=kv_lens,
+                          q_segment_ids=q_seg, kv_segment_ids=kv_seg,
                           device=q.device)
     return torch.where(mask, s, NEG_INF), mask
 
 
 def flash_attention_plain(q, k, v, q_lens, kv_lens, *, causal, window,
-                          scale):
-    """(o in q's dtype, lse (B, H, Nq) f32), densely."""
+                          scale, q_seg=None, kv_seg=None):
+    """(o in q's dtype, lse (B, H, Nq) f32), densely.  ``q_seg``/``kv_seg``:
+    optional (B, Nq)/(B, Nk) segment ids."""
     h, g = q.shape[1], k.shape[1]
-    s, mask = _scores(q, k, q_lens, kv_lens, causal, window, scale)
+    s, mask = _scores(q, k, q_lens, kv_lens, causal, window, scale, q_seg,
+                      kv_seg)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.where(mask, torch.exp(s - m), 0.0)
     l_sum = e.sum(dim=-1, keepdim=True)
@@ -73,10 +79,12 @@ def flash_attention_plain(q, k, v, q_lens, kv_lens, *, causal, window,
     return o.to(q.dtype), lse
 
 
-def _p_ds(q, k, v, do, lse, delta, q_lens, kv_lens, causal, window, scale):
+def _p_ds(q, k, v, do, lse, delta, q_lens, kv_lens, causal, window, scale,
+          q_seg, kv_seg):
     """The probability and dS tiles, densely, from the residuals."""
     h, g = q.shape[1], k.shape[1]
-    s, mask = _scores(q, k, q_lens, kv_lens, causal, window, scale)
+    s, mask = _scores(q, k, q_lens, kv_lens, causal, window, scale, q_seg,
+                      kv_seg)
     # Empty rows carry lse == NEG_INF, where exp(s - lse) is 1 on masked
     # entries: the mask pins them to 0.
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
@@ -86,23 +94,23 @@ def _p_ds(q, k, v, do, lse, delta, q_lens, kv_lens, causal, window, scale):
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, q_lens, kv_lens, *, causal,
-                       window, scale):
+                       window, scale, q_seg=None, kv_seg=None):
     """dq = scale · dS k, in q's dtype."""
     h, g = q.shape[1], k.shape[1]
     _, ds = _p_ds(q, k, v, do, lse, delta, q_lens, kv_lens, causal, window,
-                  scale)
+                  scale, q_seg, kv_seg)
     ke = torch.repeat_interleave(k, h // g, dim=1).float()
     return (torch.einsum("bhqk,bhkd->bhqd", ds, ke) * scale).to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_lens, kv_lens, *, causal,
-                        window, scale):
+                        window, scale, q_seg=None, kv_seg=None):
     """dk = scale · dSᵀ q and dv = pᵀ do, per query head, group-summed to
     kv heads, in k's and v's dtypes."""
     b, h, _, d = q.shape
     g, n_k = k.shape[1], k.shape[2]
     p, ds = _p_ds(q, k, v, do, lse, delta, q_lens, kv_lens, causal, window,
-                  scale)
+                  scale, q_seg, kv_seg)
     dk_h = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
     dv_h = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
     dk = dk_h.reshape(b, g, h // g, n_k, d).sum(dim=2)
@@ -115,9 +123,11 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_lens, kv_lens, *, causal,
 # ---------------------------------------------------------------------------
 
 
-def _check(name, q, k, v, extra=()):
+def _check(name, q, k, v, extra=(), q_seg=None, kv_seg=None):
     """q (B, H, Nq, d); k, v (B, G, Nk, d); ``extra`` are (label, tensor)
-    pairs of q's dtype.  One dtype (f32 or bf16), one device, contiguous."""
+    pairs of q's dtype.  One dtype (f32 or bf16), one device, contiguous.
+    Segment ids: both or neither, (B, Nq) and (B, Nk) contiguous int32 on
+    q's device."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"{name} wants q (B, H, Nq, d) and k, v (B, G, Nk, "
                          f"d); got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -142,13 +152,30 @@ def _check(name, q, k, v, extra=()):
             raise ValueError(f"{name}: {label} is not contiguous")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
+    if (q_seg is None) != (kv_seg is None):
+        raise ValueError("segment ids must be given for both q and kv")
+    if q_seg is not None:
+        for label, t, n in (("q_segment_ids", q_seg, q.shape[2]),
+                            ("kv_segment_ids", kv_seg, k.shape[2])):
+            _check_small(name, label, t, (b, n), torch.int32, q.device)
 
 
-def _check_bwd(name, q, k, v, do, lse, delta, q_lens, kv_lens):
+def _check_small(name, label, t, shape, dtype, device):
+    """An index or statistics tensor: exactly ``shape`` and ``dtype``,
+    contiguous, on ``device``."""
+    if (tuple(t.shape) != shape or t.dtype != dtype or t.device != device
+            or not t.is_contiguous()):
+        raise ValueError(f"{name}: {label} is {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}, want contiguous {dtype} {shape} on "
+                         f"{device}")
+
+
+def _check_bwd(name, q, k, v, do, lse, delta, q_lens, kv_lens, q_seg,
+               kv_seg):
     """The backward kernels' inputs: :func:`_check`'s, plus lse and delta
     (B, H, Nq) f32 and clamped (B,) int32 lengths, contiguous, on q's
     device."""
-    _check(name, q, k, v, (("do", do),))
+    _check(name, q, k, v, (("do", do),), q_seg, kv_seg)
     if tuple(do.shape) != tuple(q.shape):
         raise ValueError(f"{name}: do {tuple(do.shape)} must be shaped like "
                          f"q {tuple(q.shape)}")
@@ -158,11 +185,7 @@ def _check_bwd(name, q, k, v, do, lse, delta, q_lens, kv_lens):
             ("delta", delta, (b, h, n_q), torch.float32),
             ("q_lens", q_lens, (b,), torch.int32),
             ("kv_lens", kv_lens, (b,), torch.int32)):
-        if (tuple(t.shape) != shape or t.dtype != dtype
-                or t.device != q.device or not t.is_contiguous()):
-            raise ValueError(f"{name}: {label} is {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}, want "
-                             f"contiguous {dtype} {shape} on {q.device}")
+        _check_small(name, label, t, shape, dtype, q.device)
 
 
 def _lens(lens, b: int, n: int, device) -> torch.Tensor:
@@ -189,11 +212,11 @@ def _window_arg(window) -> int:
 # CUDA launches
 # ---------------------------------------------------------------------------
 
-_ARG_FWD = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float]
+_ARG_FWD = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-_ARG_DQ = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
+_ARG_DQ = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float]
            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-_ARG_DKV = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float]
+_ARG_DKV = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float]
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
@@ -240,13 +263,15 @@ def _call(lib_name: str, fn: str, q, k, tensors, scale, causal, window):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                     scale: float | None = None, q_lens=None, kv_lens=None,
+                    q_segment_ids=None, kv_segment_ids=None,
                     return_residuals: bool = False):
-    """Flash attention (B3).  q: (B, H, Nq, d); k/v: (B, G, Nk, d).
+    """Flash attention (B3).  q: (B, H, Nq, d); k/v: (B, G, Nk, d);
+    optional segment ids (B, Nq)/(B, Nk) int32, both or neither.
 
     Returns ``o`` (B, H, Nq, d) in q's dtype; with ``return_residuals``
     also ``lse`` (B, H, Nq) f32, which the backward consumes.
     """
-    _check("flash_attention", q, k, v)
+    _check("flash_attention", q, k, v, (), q_segment_ids, kv_segment_ids)
     b, _, n_q, d = q.shape
     n_k = k.shape[2]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
@@ -255,12 +280,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     win = _window_arg(window)
     if q.device.type == "cpu":
         o, lse = flash_attention_plain(q, k, v, ql, kl, causal=causal,
-                                       window=window, scale=scale)
+                                       window=window, scale=scale,
+                                       q_seg=q_segment_ids,
+                                       kv_seg=kv_segment_ids)
         return (o, lse) if return_residuals else o
     o = torch.empty_like(q)
     lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
            if return_residuals else None)
-    _call("flash_fwd", "flash_fwd", q, k, (q, k, v, ql, kl, o, lse), scale,
+    _call("flash_fwd", "flash_fwd", q, k,
+          (q, k, v, ql, kl, q_segment_ids, kv_segment_ids, o, lse), scale,
           causal, win)
     flash_attention.n_launches += 1
     return (o, lse) if return_residuals else o
@@ -270,17 +298,20 @@ flash_attention.n_launches = 0
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, q_lens, kv_lens, *, causal, window,
-                 scale):
+                 scale, q_seg=None, kv_seg=None):
     """The dq pass (B4).  ``q_lens``/``kv_lens``: (B,) int32, clamped;
-    ``lse``/``delta``: (B, H, Nq) f32.  Returns dq in q's dtype."""
-    _check_bwd("flash_bwd_dq", q, k, v, do, lse, delta, q_lens, kv_lens)
+    ``lse``/``delta``: (B, H, Nq) f32; ``q_seg``/``kv_seg``: the forward's
+    segment ids or None.  Returns dq in q's dtype."""
+    _check_bwd("flash_bwd_dq", q, k, v, do, lse, delta, q_lens, kv_lens,
+               q_seg, kv_seg)
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, q_lens, kv_lens,
-                                  causal=causal, window=window, scale=scale)
+                                  causal=causal, window=window, scale=scale,
+                                  q_seg=q_seg, kv_seg=kv_seg)
     dq = torch.empty_like(q)
     _call("flash_bwd", "flash_bwd_dq", q, k,
-          (q, k, v, do, lse, delta, q_lens, kv_lens, dq), scale, causal,
-          _window_arg(window))
+          (q, k, v, do, lse, delta, q_lens, kv_lens, q_seg, kv_seg, dq),
+          scale, causal, _window_arg(window))
     flash_bwd_dq.n_launches += 1
     return dq
 
@@ -289,17 +320,19 @@ flash_bwd_dq.n_launches = 0
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, q_lens, kv_lens, *, causal,
-                  window, scale):
+                  window, scale, q_seg=None, kv_seg=None):
     """The dk/dv pass (B5), arguments as :func:`flash_bwd_dq`.  Returns
     (dk, dv) in k's and v's dtypes, summed over each kv head's group."""
-    _check_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, q_lens, kv_lens)
+    _check_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, q_lens, kv_lens,
+               q_seg, kv_seg)
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_lens, kv_lens,
-                                   causal=causal, window=window, scale=scale)
+                                   causal=causal, window=window, scale=scale,
+                                   q_seg=q_seg, kv_seg=kv_seg)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call("flash_bwd", "flash_bwd_dkv", q, k,
-          (q, k, v, do, lse, delta, q_lens, kv_lens, dk, dv), scale, causal,
-          _window_arg(window))
+          (q, k, v, do, lse, delta, q_lens, kv_lens, q_seg, kv_seg, dk, dv),
+          scale, causal, _window_arg(window))
     flash_bwd_dkv.n_launches += 1
     return dk, dv
 
@@ -310,14 +343,16 @@ flash_bwd_dkv.n_launches = 0
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int | None = None,
                         scale: float | None = None, q_lens=None,
-                        kv_lens=None):
+                        kv_lens=None, q_segment_ids=None,
+                        kv_segment_ids=None):
     """Analytic flash backward from the forward's residuals ``(o, lse)``.
 
     q/o/do: (B, H, Nq, d); k/v: (B, G, Nk, d); lse: (B, H, Nq) f32.  The
-    masks must match the forward call's.  Returns (dq, dk, dv) in the
-    input dtypes.
+    masks, segment ids included, must match the forward call's.  Returns
+    (dq, dk, dv) in the input dtypes.
     """
-    _check("flash_attention_bwd", q, k, v, (("o", o), ("do", do)))
+    _check("flash_attention_bwd", q, k, v, (("o", o), ("do", do)),
+           q_segment_ids, kv_segment_ids)
     b, h, n_q, d = q.shape
     n_k = k.shape[2]
     if tuple(o.shape) != tuple(q.shape):
@@ -329,7 +364,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     kl = _lens(kv_lens, b, n_k, q.device)
     # D_i = Σ_d do·o — one f32 pass shared by both kernels.
     delta = (do.float() * o.float()).sum(dim=-1).contiguous()
-    kw = dict(causal=causal, window=window, scale=scale)
+    kw = dict(causal=causal, window=window, scale=scale, q_seg=q_segment_ids,
+              kv_seg=kv_segment_ids)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, ql, kl, **kw)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ql, kl, **kw)
     return dq, dk, dv

@@ -16,7 +16,8 @@ seeded with ``(-m_f, g_{w_f}, -g_{u_f})`` and finishes with
 the scan without residuals; packed rows (``segment_ids``) run the segmented
 forms of both scans.  ``FlashAttention`` does the same for softmax
 attention: its forward saves ``(q, k, v, o, lse)`` and its backward runs
-the dq and dk/dv passes.
+the dq and dk/dv passes; packed rows carry their segment ids from the
+forward to both backward passes.
 """
 
 from __future__ import annotations
@@ -186,26 +187,39 @@ def aaren_prefix_attention(s, v, carry: ScanState | None = None, *,
 class FlashAttention(torch.autograd.Function):
     """(q, k, v) -> o in the kernels' (B, H, N, d) layout, with the analytic
     backward from the residuals ``(q, k, v, o, lse)`` — the contract of the
-    JAX package's ``_flash_fwd``."""
+    JAX package's ``_flash_fwd``.  The lengths and segment ids of the
+    forward reach both backward passes."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_lens, kv_lens, causal, window, scale):
+    def forward(ctx, q, k, v, q_lens, kv_lens, q_seg, kv_seg, causal, window,
+                scale):
         o, lse = flash_attention(q, k, v, causal=causal, window=window,
                                  scale=scale, q_lens=q_lens, kv_lens=kv_lens,
+                                 q_segment_ids=q_seg, kv_segment_ids=kv_seg,
                                  return_residuals=True)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.lens = (q_lens, kv_lens)
-        ctx.mask = (causal, window, scale)
+        ctx.masks = dict(q_lens=q_lens, kv_lens=kv_lens, q_segment_ids=q_seg,
+                         kv_segment_ids=kv_seg, causal=causal, window=window,
+                         scale=scale)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, window, scale = ctx.mask
-        dq, dk, dv = flash_attention_bwd(
-            q, k, v, o, lse, do.contiguous(), causal=causal, window=window,
-            scale=scale, q_lens=ctx.lens[0], kv_lens=ctx.lens[1])
-        return dq, dk, dv, None, None, None, None, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         **ctx.masks)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def _segment_ids(ids, name, device):
+    """Segment ids as contiguous int32 on ``device``; the kernels' wrappers
+    check the shape."""
+    ids = torch.as_tensor(ids, device=device)
+    if ids.dtype.is_floating_point or ids.dtype.is_complex or (
+            ids.dtype == torch.bool):
+        raise ValueError(f"flash_mha: {name} must be integer ids, got "
+                         f"{ids.dtype}")
+    return ids.to(torch.int32).contiguous()
 
 
 def flash_mha(q, k, v, *, causal: bool = True, window: int | None = None,
@@ -216,21 +230,31 @@ def flash_mha(q, k, v, *, causal: bool = True, window: int | None = None,
     The model's layout is sequence-major; the kernels want head-major
     (B, H, N, d), so the boundary transposes.  ``q_lens``/``kv_lens``:
     optional (B,) true lengths, masked inside the kernels and their
-    backward.  Differentiable in q, k and v; a call that needs no gradient
-    (prefill) runs the forward kernel without its ``lse`` residual.
-    Returns (B, Nq, H, d).
+    backward.  ``q_segment_ids``/``kv_segment_ids``: optional (B, Nq)/(B, Nk)
+    integer packed-segment ids (0 = padding); attention never crosses a
+    segment, and one side alone stands for both (self-attention), as in
+    the JAX package.  Differentiable in q, k and v; a call that needs no
+    gradient (prefill) runs the forward kernel without its ``lse``
+    residual.  Returns (B, Nq, H, d).
     """
-    if q_segment_ids is not None or kv_segment_ids is not None:
-        raise NotImplementedError(
-            "packed sequences through flash attention (segment ids) come "
-            "with ROADMAP queue A item 7b (A7b)")
+    if q_segment_ids is None:
+        q_segment_ids = kv_segment_ids
+    if kv_segment_ids is None:
+        kv_segment_ids = q_segment_ids
+    if q_segment_ids is not None:
+        q_segment_ids = _segment_ids(q_segment_ids, "q_segment_ids",
+                                     q.device)
+        kv_segment_ids = _segment_ids(kv_segment_ids, "kv_segment_ids",
+                                      q.device)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        o = FlashAttention.apply(qt, kt, vt, q_lens, kv_lens, causal, window,
-                                 float(scale))
+        o = FlashAttention.apply(qt, kt, vt, q_lens, kv_lens, q_segment_ids,
+                                 kv_segment_ids, causal, window, float(scale))
     else:
         o = flash_attention(qt, kt, vt, causal=causal, window=window,
-                            scale=scale, q_lens=q_lens, kv_lens=kv_lens)
+                            scale=scale, q_lens=q_lens, kv_lens=kv_lens,
+                            q_segment_ids=q_segment_ids,
+                            kv_segment_ids=kv_segment_ids)
     return o.transpose(1, 2)

@@ -1,9 +1,9 @@
 """Dense oracles for the Aaren prefix scan and flash attention, with their
 VJPs — the port of ``repro.kernels.ref`` (``aaren_scan_reference``,
 ``aaren_scan_vjp_reference``, ``aaren_scan_segmented_reference``,
-``flash_reference``, ``flash_vjp_reference``; flash's segment ids come
-with ROADMAP item A7b), written
-with the simplest correct torch so they double as the readable spec.  The
+``flash_reference``, ``flash_vjp_reference``, segment ids included),
+written with the simplest correct torch so they double as the readable
+spec.  The
 flash oracles are the plain versions of B3–B5 under the JAX oracles'
 signatures.  Only the tests use them."""
 
@@ -141,24 +141,28 @@ def aaren_scan_segmented_reference(s, v, segment_ids):
 
 
 def flash_reference(q, k, v, *, causal=True, window=None, scale=None,
-                    q_lens=None, kv_lens=None):
-    """Row-wise softmax attention under causal / window / length masks:
-    the plain version of B3 (``flash_attention_plain``, dense torch).
+                    q_lens=None, kv_lens=None, q_segment_ids=None,
+                    kv_segment_ids=None):
+    """Row-wise softmax attention under causal / window / length / segment
+    masks: the plain version of B3 (``flash_attention_plain``, dense torch).
 
     q: (B, H, Nq, d); k/v: (B, G, Nk, d), GQA-aware.  Queries at or beyond
-    ``q_lens`` and rows with no live key output 0.  Returns (B, H, Nq, d)
-    in q's dtype.
+    ``q_lens``, padding queries (segment id 0) and rows with no live key
+    output 0; a pair is live only within one segment.  Returns
+    (B, H, Nq, d) in q's dtype.
     """
     b, _, n_q, d = q.shape
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     return fa.flash_attention_plain(
         q, k, v, fa._lens(q_lens, b, n_q, q.device),
         fa._lens(kv_lens, b, k.shape[2], q.device), causal=causal,
-        window=window, scale=scale)[0]
+        window=window, scale=scale, q_seg=q_segment_ids,
+        kv_seg=kv_segment_ids)[0]
 
 
 def flash_vjp_reference(q, k, v, do, *, causal=True, window=None, scale=None,
-                        q_lens=None, kv_lens=None):
+                        q_lens=None, kv_lens=None, q_segment_ids=None,
+                        kv_segment_ids=None):
     """Analytic flash-attention cotangents: the plain versions of B3, B4
     and B5 in sequence.  With ``p = softmax(mask(q kᵀ scale))`` and
     ``D_i = do_i · o_i``: ``dS = p ⊙ (do vᵀ − D)``, ``dq = dS k · scale``,
@@ -167,7 +171,8 @@ def flash_vjp_reference(q, k, v, do, *, causal=True, window=None, scale=None,
     """
     b, _, n_q, d = q.shape
     kw = dict(causal=causal, window=window,
-              scale=1.0 / math.sqrt(d) if scale is None else scale)
+              scale=1.0 / math.sqrt(d) if scale is None else scale,
+              q_seg=q_segment_ids, kv_seg=kv_segment_ids)
     ql = fa._lens(q_lens, b, n_q, q.device)
     kl = fa._lens(kv_lens, b, k.shape[2], q.device)
     o, lse = fa.flash_attention_plain(q, k, v, ql, kl, **kw)

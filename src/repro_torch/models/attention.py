@@ -29,7 +29,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import aaren as aaren_core
 from repro_torch.core import softmax_attention as soft
-from repro_torch.core.rope import rope_for_positions
+from repro_torch.core.rope import rope_for_positions, segment_positions
 from repro_torch.core.scan_attention import (
     NEG_INF,
     ScanState,
@@ -96,22 +96,26 @@ def softmax_sequence(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     masks the padded gap.  ``cache_len``: the decode cache to return —
     ``>= N`` keeps every position, ``< N`` the trailing window as a full
     ring buffer in bf16 (ragged rows would need per-row ring indices, and
-    raise), ``None`` no cache (training).  Packed batches (``segment_ids``,
-    ``positions``) raise: their segment tiles and per-document RoPE come
-    with ROADMAP queue A item 7b.  Returns (y, cache or None).
+    raise), ``None`` no cache (training).  Packed rows: ``segment_ids``
+    (B, N) go to the flash kernels' segment masks (attention never crosses
+    a document, padding id 0 reads 0), and RoPE rotates by ``positions``
+    (B, N), the within-document positions, derived from the ids when not
+    given (:func:`segment_positions`).  A packed row has no single decode
+    tail, so its cache serves no handoff.  Returns (y, cache or None).
     """
-    if segment_ids is not None or positions is not None:
-        raise NotImplementedError(
-            "packed sequences on a softmax layer (segment_ids, positions) "
-            "come with ROADMAP queue A item 7b (A7b)")
     b, n, _ = x.shape
     q = _proj_q(p, x)
     k, v = _proj_kv(p, x)
-    positions = (torch.arange(n, device=x.device) + pos_offset)[None, :]
+    if segment_ids is not None and positions is None:
+        positions = segment_positions(segment_ids)
+    if positions is None:
+        positions = (torch.arange(n, device=x.device) + pos_offset)[None, :]
     q = rope_for_positions(q, positions, cfg.rope_theta)
     k = rope_for_positions(k, positions, cfg.rope_theta)
     ctx = kops.flash_mha(q, k, v, causal=True, window=window,
-                         q_lens=lengths, kv_lens=lengths)
+                         q_lens=lengths, kv_lens=lengths,
+                         q_segment_ids=segment_ids,
+                         kv_segment_ids=segment_ids)
     y = _proj_out(p, ctx)
     if cache_len is None:
         return y, None

@@ -73,9 +73,10 @@ def lm_apply(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     """tokens (B, N) -> (logits (B, N, vocab) f32, states or None).
 
     Packed batches (DESIGN.md §Packing): ``segment_ids``/``positions``
-    (B, N) keep the packed documents independent in every mixer (Aaren's
-    scan restarts at each document; softmax layers raise until ROADMAP
-    item A7b).
+    (B, N) keep the packed documents independent in every mixer: Aaren's
+    scan restarts at each document; softmax layers mask every
+    cross-document pair in the flash kernels and rotate by the
+    within-document ``positions``.
 
     ``lengths`` (B,): true lengths of right-padded ragged rows — each row's
     padded tail is masked in the scan and the flash kernels, so the

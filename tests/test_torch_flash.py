@@ -348,9 +348,20 @@ def test_wrappers_check_inputs():
     o, lse = fa.flash_attention(q, k, v, return_residuals=True)
     with pytest.raises(ValueError, match="lse"):
         fa.flash_attention_bwd(q, k, v, o, lse[..., :4], do)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        flash_mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                  q_segment_ids=torch.ones(1, 8, dtype=torch.int32))
+    ids = torch.ones(1, 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="both q and kv"):
+        fa.flash_attention(q, k, v, q_segment_ids=ids)
+    with pytest.raises(ValueError, match="both q and kv"):
+        fa.flash_attention_bwd(q, k, v, o, lse, do, kv_segment_ids=ids)
+    for bad in (ids.long(), ids[:, :7].contiguous(), ids.expand(2, 8),
+                torch.ones(1, 16, dtype=torch.int32)[:, ::2]):
+        with pytest.raises(ValueError, match="segment_ids"):
+            fa.flash_attention(q, k, v, q_segment_ids=ids,
+                               kv_segment_ids=bad)
+    # One document over the whole row is no packing at all.
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    assert torch.equal(flash_mha(qs, ks, vs, q_segment_ids=ids),
+                       flash_mha(qs, ks, vs))
 
 
 @pytest.mark.cuda

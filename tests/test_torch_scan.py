@@ -162,16 +162,17 @@ def test_ops_leading_dims_match_jax():
 
 
 def test_ops_refuses_segments_and_wrapper_checks_inputs():
-    """flash_mha still refuses segment ids (ROADMAP item A7b); the Aaren
-    scan takes them (tests/test_torch_packing.py), and its wrappers check
-    every input, the segment flags included."""
+    """flash_mha refuses malformed segment ids (it takes well-formed ones:
+    tests/test_torch_packing_softmax.py); the Aaren scan takes them
+    (tests/test_torch_packing.py), and its wrappers check every input, the
+    segment flags included."""
     s = torch.zeros(2, 4)
     v = torch.zeros(2, 4, 8)
     q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        flash_mha(q, q, q, q_segment_ids=torch.ones(1, 4, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="A7b"):
-        flash_mha(q, q, q, kv_segment_ids=torch.ones(1, 4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="segment_ids"):
+        flash_mha(q, q, q, q_segment_ids=torch.ones(1, 3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="integer"):
+        flash_mha(q, q, q, kv_segment_ids=torch.ones(1, 4))
     m0, u0, w0 = torch.zeros(2, 1), torch.zeros(2, 1), torch.zeros(2, 8)
     for bad in (torch.ones(2, 4), torch.ones(2, 3, dtype=torch.bool),
                 torch.ones(4, 2, dtype=torch.bool).t()):
