@@ -3,12 +3,20 @@
 
 Each side runs in its own process with its own ``src/`` on the path, so it
 builds and calls its own CUDA sources through its own wrappers, on the same
-numpy inputs (the call without segment flags or ids, which every version
-of the wrappers takes).  The sides run in turns — A, B, B, A — and the
-script prints each run's device time (one launch inside a replayed CUDA
-graph) and whether the two trees' outputs are bit-identical.  Shapes are
-phi3-mini-3.8b's: the Aaren scans at the serving tick and the training
-shape, the flash kernels at the training shape.
+numpy inputs.  The sides run in turns — A, B, B, A — and the script prints
+each run's device time (one launch inside a replayed CUDA graph) and B's
+speed-up over A.  Shapes are phi3-mini-3.8b's: the Aaren scans at the
+serving tick and the training shape, the flash kernels at the training
+shape, bf16 and f32, without and with segment ids (packed documents).
+
+Outputs: every call must give bit-identical outputs on both sides, except
+the bf16 calls of the kernels in ``CHANGED`` (the ones tree B redesigned:
+B3 and B5, moved to the tensor cores).  For those
+it prints max |A - B| and each side's max |error| against the plain
+version computed in f32 on the same inputs.  The backward kernels of both
+sides read the same ``lse`` and ``delta`` (from the plain forward), so a
+changed B3 does not change B4's or B5's inputs.  Exits 1 when an output
+that must be bit-identical is not.
 
     git archive <parent> | tar -x -C build/parent
     python3 benchmarks/torch/kernels_ab.py --a build/parent --b .
@@ -28,8 +36,11 @@ from pathlib import Path
 SHAPES = [("serving tick", 256, 16, 96, False),
           ("training", 128, 1024, 96, True)]
 
-# B, H = G, N, d of the flash kernels (bf16, causal)
+# B, H = G, N, d of the flash kernels (causal)
 FLASH_SHAPE = (4, 32, 1024, 96)
+
+# Kernels whose bf16 outputs tree B changed: compared by error, not bits.
+CHANGED = ("B3", "B5")
 
 SIDE = r'''
 import math, statistics, sys
@@ -60,6 +71,9 @@ def graph_ms(fn, n_iter):
         times.append(start.elapsed_time(end) / n_iter)
     return statistics.median(times)
 
+def as_list(res):
+    return [t.cpu() for t in (res if isinstance(res, tuple) else (res,))]
+
 out = {}
 for label, r, n, d, residuals in SHAPES:
     rng = np.random.default_rng(0)
@@ -72,36 +86,66 @@ for label, r, n, d, residuals in SHAPES:
     w0 = torch.zeros((r, d), device="cuda")
     fwd = lambda: aaren_scan(s, v, m0, u0, w0, return_residuals=residuals)
     res = fwd()
-    out[label + " B1"] = [t.cpu() for t in res]
+    out[label + " B1"] = as_list(res)
     times = {"B1": graph_ms(fwd, 20)}
     if residuals:
         o, m_f, u_f, w_f, m_all, u_all = res
         args = (s, v, o, m_all, u_all, g, -m_f, torch.ones_like(w_f),
                 -torch.ones_like(u_f))
-        out[label + " B2"] = [t.cpu() for t in aaren_scan_bwd(*args)]
+        out[label + " B2"] = as_list(aaren_scan_bwd(*args))
         times["B2"] = graph_ms(lambda: aaren_scan_bwd(*args), 20)
     for k, ms in times.items():
         print(f"TIME {label} {k} {ms * 1e3:.2f}")
 
+def doc_ids(b, n, seed):
+    """Packed rows: documents of 8 + 1016 u^3 tokens, ids from 1, the
+    last one cut at n and a padding tail of up to 100 tokens."""
+    rng = np.random.default_rng(seed)
+    ids = np.zeros((b, n), np.int32)
+    for r in range(b):
+        a, sid, stop = 0, 1, n - int(rng.integers(0, 101))
+        while a < stop:
+            c = min(stop, a + 8 + int(1016 * rng.random() ** 3))
+            ids[r, a:c] = sid
+            a, sid = c, sid + 1
+    return torch.from_numpy(ids).cuda()
+
 b, h, n, d = FLASH_SHAPE
 rng = np.random.default_rng(1)
-q, k, v, do = (torch.from_numpy(rng.standard_normal((b, h, n, d))
-                                .astype(np.float32)).cuda().bfloat16()
-               for _ in range(4))
+base = [torch.from_numpy(rng.standard_normal((b, h, n, d))
+                         .astype(np.float32)).cuda() for _ in range(4)]
 lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
-kw = dict(causal=True, window=None, scale=1.0 / math.sqrt(d))
-fwd = lambda: fa.flash_attention(q, k, v, return_residuals=True, **kw)
-o, lse = fwd()
-delta = (do.float() * o.float()).sum(dim=-1).contiguous()
-args = (q, k, v, do, lse, delta, lens, lens)
-calls = {"B3": fwd, "B4": lambda: fa.flash_bwd_dq(*args, **kw),
-         "B5": lambda: fa.flash_bwd_dkv(*args, **kw)}
-for key, fn in calls.items():
-    res = fn()
-    out["flash training " + key] = [t.cpu() for t in
-                                    (res if isinstance(res, tuple) else
-                                     (res,))]
-    print(f"TIME flash training {key} {graph_ms(fn, 10) * 1e3:.2f}")
+ids = doc_ids(b, n, 2)
+for dtype in ("bf16", "f32"):
+    q, k, v, do = (t.to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+                   for t in base)
+    for form, seg in (("", None), ("segmented ", ids)):
+        kw = dict(causal=True, window=None, scale=1.0 / math.sqrt(d))
+        fwd_kw = dict(kw, q_segment_ids=seg, kv_segment_ids=seg)
+        bwd_kw = dict(kw, q_seg=seg, kv_seg=seg)
+        # lse and delta from the plain forward: both sides' backward
+        # kernels read the same residuals.
+        o_p, lse = fa.flash_attention_plain(q, k, v, lens, lens, **bwd_kw)
+        delta = (do.float() * o_p.float()).sum(dim=-1).contiguous()
+        args = (q, k, v, do, lse, delta, lens, lens)
+        calls = {"B3": lambda: fa.flash_attention(q, k, v,
+                                                  return_residuals=True,
+                                                  **fwd_kw),
+                 "B4": lambda: fa.flash_bwd_dq(*args, **bwd_kw),
+                 "B5": lambda: fa.flash_bwd_dkv(*args, **bwd_kw)}
+        if dtype == "bf16":
+            f = [t.float() for t in (q, k, v, do)]
+            out[f"plain flash {form}bf16 B3"] = as_list(
+                fa.flash_attention_plain(*f[:3], lens, lens, **bwd_kw))
+            out[f"plain flash {form}bf16 B5"] = as_list(
+                fa.flash_bwd_dkv_plain(*f, lse, delta, lens, lens,
+                                       **bwd_kw))
+        for key, fn in calls.items():
+            out[f"flash {form}{dtype} {key}"] = as_list(fn())
+            print(f"TIME flash {form}{dtype} {key} "
+                  f"{graph_ms(fn, 10) * 1e3:.2f}")
+        del o_p, lse, delta, args, calls
+        torch.cuda.empty_cache()
 torch.save(out, sys.argv[1])
 '''
 
@@ -142,10 +186,33 @@ def main(argv=None) -> int:
         outs = {side: torch.load(dumps[side]) for side in trees}
     for side, times in runs:
         print(side, "  ".join(f"{k} {us:.2f} us" for k, us in times.items()))
+    for key in runs[0][1]:
+        a = [t[key] for s, t in runs if s == "A"]
+        b = [t[key] for s, t in runs if s == "B"]
+        print(f"{key}: B is {a[0] / b[0]:.2f}x and {a[1] / b[1]:.2f}x as "
+              "fast as A (run 1 over run 2, run 4 over run 3)")
+    broken = []
     for key in outs["A"]:
-        same = all(torch.equal(a, b)
-                   for a, b in zip(outs["A"][key], outs["B"][key]))
+        if key.startswith("plain "):
+            continue
+        pa, pb = outs["A"][key], outs["B"][key]
+        if " bf16 " in key and key.split()[-1] in CHANGED:
+            plain = outs["B"]["plain " + key]
+            diff = max((x.float() - y.float()).abs().max().item()
+                       for x, y in zip(pa, pb))
+            err = {side: max((x.float() - y.float()).abs().max().item()
+                             for x, y in zip(outs[side][key], plain))
+                   for side in "AB"}
+            print(f"{key}: max |A - B| {diff:.3e}; max |side - plain f32| "
+                  f"A {err['A']:.3e}, B {err['B']:.3e}")
+            continue
+        same = all(torch.equal(x, y) for x, y in zip(pa, pb))
         print(f"{key}: outputs of A and B bit-identical: {same}")
+        if not same:
+            broken.append(key)
+    if broken:
+        print("NOT bit-identical: " + ", ".join(broken))
+        return 1
     return 0
 
 

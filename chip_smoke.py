@@ -13,7 +13,10 @@ own error):
 1. Toolchain and card: ``nvidia-smi``, ``torch.version.cuda``, ``nvcc``;
    TF32 off for matmuls and cuDNN.
 2. Build every CUDA kernel of the paths from ``src/repro_torch/csrc``, one
-   ``nvcc`` per source, all started together.
+   ``nvcc`` per source, all started together; for each instantiation of the
+   bf16 tensor-core kernels (B3 and B5, SEG false and true) the HGMMA
+   instructions in ``cuobjdump -sass`` of the built library and ``-Xptxas
+   -v``'s registers and spills (a count of 0 fails the run).
 3. Each kernel against its plain PyTorch version on the card: B1 (serving
    form and residual form) and B2 on edge shapes, the inputs of a real
    serving tick at the first and last layer, a small f32 model served on the
@@ -26,12 +29,14 @@ own error):
    at the training N), and all-zero flags against no flags, bit for bit.
    B3, B4 and B5 on edge shapes (N = 1, odd N, N = 1000, ragged lengths
    with 0 and all-empty rows, window, GQA, d from 32 to 256, f32 and
-   bf16).  The segmented B3, B4 and B5 on packed edge cases (single-token
+   bf16; every f32 case with a bf16 twin), bf16 B3 and B5 also against the
+   tensor-core oracles of ``kernels/ref.py`` at 2 bf16 spacings of each
+   row's max (+1e-6).  The segmented B3, B4 and B5 on packed edge cases (single-token
    documents, a document straddling 64-row tiles, a padding tail, an
    all-padding row, reused non-monotone ids, ids with q/kv lengths, ids
-   with a window, GQA, d = 32 and 256, N = 1 and 1000, f32 and bf16), with
-   padding rows and keys exactly 0 and all-ones ids against no ids, bit
-   for bit.  A small f32 softmax model's greedy tokens (plain and ragged
+   with a window, GQA, d = 32 and 256, N = 1 and 1000, f32 and bf16, every
+   f32 case with a bf16 twin), with padding rows and keys exactly 0 and
+   all-ones ids against no ids, bit for bit.  A small f32 softmax model's greedy tokens (plain and ragged
    prompts), loss, gradients and three train steps on the card against the
    CPU.  Small f32 Aaren and softmax models' packed loss and gradients on
    the card against the CPU, and their packed loss against per-document
@@ -309,9 +314,10 @@ def _device_profile(torch, fn, n: int):
 KERNEL_GROUPS = (
     ("B1 aaren_scan_fwd_kernel", ("aaren_scan_fwd",)),
     ("B2 aaren_scan_bwd_kernel", ("aaren_scan_bwd",)),
-    ("B3 flash_fwd_kernel", ("flash_fwd_kernel",)),
+    ("B3 flash_fwd_kernel", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
     ("B4 flash_bwd_dq_kernel", ("flash_bwd_dq_kernel",)),
-    ("B5 flash_bwd_dkv_kernel", ("flash_bwd_dkv_kernel",)),
+    ("B5 flash_bwd_dkv_kernel", ("flash_bwd_dkv_kernel",
+                                 "flash_bwd_dkv_wgmma_kernel")),
     ("GEMM/GEMV (bf16 and f32)", ("gemm", "gemv", "nvjet", "xmma", "sgemm")),
     ("reductions (norms, sums, log-softmax)", ("reduce", "softmax", "norm")),
     ("elementwise and copies (casts, AdamW, scaling)",
@@ -392,6 +398,60 @@ BWD_ONLY_CASES = [
     ("extreme scores (+-80), training N", 4, 1024, 96, True, (), 80.0),
     ("widest d, long row", 3, 300, 256, False, (1,), 3.0),
 ]
+
+
+# The bf16 tensor-core kernels, by library: B3 and B5.
+WGMMA_KERNELS = (("flash_fwd", "flash_fwd_wgmma_kernel"),
+                 ("flash_bwd", "flash_bwd_dkv_wgmma_kernel"))
+
+
+def _ptxas_usage(log: str) -> dict[str, str]:
+    """{mangled kernel: "R registers, S bytes spill stores, L bytes spill
+    loads"} from ``-Xptxas -v`` output."""
+    usage, spills, fn = {}, {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[-1].strip()
+        elif fn and "spill stores" in line:
+            spills[fn] = ", ".join(part.strip() for part in
+                                   line.strip().split(",")[1:])
+        elif "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and "Used" in line and "registers" in line:
+            usage[fn] = line.split("Used")[1].split(",")[0].strip()
+    return {fn: f"{usage[fn]}, {spills.get(fn, 'no spill line')}"
+            for fn in usage}
+
+
+def phase2_tensor_cores(kbuild, logs) -> None:
+    """For every instantiation of the bf16 tensor-core kernels (B3, B5;
+    each head-dim class, SEG false and true): its HGMMA instructions in the
+    built library's SASS, and ``-Xptxas -v``'s registers and spills.  Fails
+    when an instantiation has no HGMMA."""
+    cuobjdump = str(Path(kbuild._nvcc()).parent / "cuobjdump")
+    for lib, kernel in WGMMA_KERNELS:
+        sass = subprocess.run([cuobjdump, "-sass",
+                               str(kbuild.library_path(lib))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+            elif fn and kernel in fn and "HGMMA" in line:
+                counts[fn] = counts.get(fn, 0) + 1
+        usage = _ptxas_usage(logs.get(lib, ""))
+        names = sorted({fn for fn in usage if kernel in fn} | set(counts))
+        _require(len(names) == 10, f"{kernel}: {len(names)} instantiations "
+                 "found, want 10 (five head-dim classes, SEG false and true)")
+        for fn in names:
+            # _Z..ILi6ELb1EE..: NK = 6, SEG = true
+            nk = fn.split("ILi")[1].split("E")[0]
+            seg = "true" if "ELb1E" in fn else "false"
+            print(f"  {kernel}<NK={nk}, SEG={seg}>: {counts.get(fn, 0)} "
+                  f"HGMMA; {usage.get(fn, 'ptxas output not seen')}")
+            _require(counts.get(fn, 0) > 0, f"{fn}: no HGMMA instruction in "
+                     "the SASS")
 
 
 def phase3_kernels(torch, np) -> tuple[float, float]:
@@ -524,10 +584,19 @@ FLASH_CASES = [
     ("bf16, N = 1, an empty row", (2, 2, 2, 1, 32), "bfloat16", True, None,
      (1, 0)),
 ]
+# A bf16 twin of every f32 case: bf16 runs B3 and B5 on the tensor cores.
+FLASH_CASES += [(f"{c[0]} (bf16)", c[1], "bfloat16", *c[3:])
+                for c in FLASH_CASES if c[2] == "float32"]
 # The CPU parity bars of tests/test_torch_flash.py: forward rtol = atol (f32
 # 2e-5, bf16 2e-2); gradients |kernel - plain| <= rtol * max |plain| + 1e-6.
 FLASH_FWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# bf16 B3 and B5 against the oracles of their rounding points
+# (kernels/ref.py): both round the same p and dS to bf16, so they differ
+# by the order of f32 sums, a rare p or dS that rounds the other way, and
+# the last rounding of the bf16 output (at most one spacing of a row's
+# max).
+ORACLE_SPACINGS = 2.0
 
 
 def _flash_inputs(torch, np, b, h, g, n, d, dtype, seed):
@@ -548,16 +617,43 @@ def _grad_close(a, b, rtol, what):
     return err
 
 
+def _oracle_close(torch, a, b, what):
+    """The tensor-core oracle bar: on every output row (a query's o, a key's
+    dk or dv), |kernel - oracle| <= ORACLE_SPACINGS bf16 spacings of the
+    row's max |oracle| (the spacing of x is 2^(floor(log2 x) - 7), 0 for
+    x = 0) + 1e-6, the f32 noise floor of FLASH_GRAD_TOL's bar where the
+    true value is 0.  Returns the worst row's |kernel - oracle| as a
+    fraction of its bar (at most 1)."""
+    a, b = a.float(), b.float()
+    _require(bool(a.isfinite().all()), f"{what}: kernel output not finite")
+    row_max = b.abs().amax(dim=-1, keepdim=True)
+    spacing = torch.where(row_max > 0,
+                          torch.exp2(torch.floor(torch.log2(row_max)) - 7),
+                          0.0)
+    err = (a - b).abs().amax(dim=-1, keepdim=True)
+    over = err - (ORACLE_SPACINGS * spacing + 1e-6)
+    _require(bool((over <= 0).all()), f"{what}: |kernel - oracle| "
+             f"{err.flatten()[over.flatten().argmax()].item():.3e} on a row "
+             f"whose max |oracle| is "
+             f"{row_max.flatten()[over.flatten().argmax()].item():.3e}, over "
+             f"{ORACLE_SPACINGS} bf16 spacings + 1e-6")
+    return (err / (ORACLE_SPACINGS * spacing + 1e-6)).max().item()
+
+
 def _check_flash(torch, q, k, v, do, lens, causal, window, label, seg=None):
     """B3, B4 and B5 against their plain versions on the same tensors, with
-    segment ids ``seg`` (B, N) for both q and kv when given.  Masked
-    queries (by length or padding id) must read o = 0 and lse = NEG_INF
-    and get dq = 0, masked keys dk = dv = 0, exactly.  Returns the max
-    |kernel - plain| of each, keyed by wrapper name."""
+    segment ids ``seg`` (B, N) for both q and kv when given; for bf16, B3's
+    o and B5's dk, dv also against the tensor-core oracles
+    (:func:`_oracle_close`).  Masked queries (by length or padding id) must
+    read o = 0 and lse = NEG_INF and get dq = 0, masked keys dk = dv = 0,
+    exactly.  Returns the max |kernel - plain| of each, keyed by wrapper
+    name, and under "oracle_*" the worst oracle error as a fraction of
+    its bar."""
     import math
 
     from repro_torch.core.scan_attention import NEG_INF
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
 
     dtype = str(q.dtype).split(".")[-1]
     b, h, n_q, d = q.shape
@@ -586,6 +682,13 @@ def _check_flash(torch, q, k, v, do, lens, causal, window, label, seg=None):
                        == NEG_INF).all()),
              f"{label}: a masked query does not read o = 0, lse = NEG_INF")
     errs = {"flash_attention": (o.float() - o_p.float()).abs().max().item()}
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        o_tc, lse_tc = ref.flash_attention_tc_oracle(q, k, v, ql, kl, **kw)
+        _require(torch.equal(lse_tc, lse_p), f"{label}: the oracle's lse "
+                 "differs from the plain version's")
+        errs["oracle_flash_attention"] = _oracle_close(
+            torch, o, o_tc, f"{label} o (tensor-core oracle)")
 
     delta = (do.float() * o_p.float()).sum(dim=-1).contiguous()
     args = (q, k, v, do, lse_p, delta, ql, kl)
@@ -602,17 +705,30 @@ def _check_flash(torch, q, k, v, do, lens, causal, window, label, seg=None):
     _require(bool((dq[dead[:, None].expand(b, h, n_q)] == 0).all()
                   and (dk[dead_k] == 0).all() and (dv[dead_k] == 0).all()),
              f"{label}: a masked query or key has a nonzero gradient")
+    oracle = ""
+    if tc:
+        dk_tc, dv_tc = ref.flash_bwd_dkv_tc_oracle(*args, **kw)
+        errs["oracle_flash_bwd_dkv"] = max(
+            _oracle_close(torch, dk, dk_tc, f"{label} dk (tensor-core "
+                          "oracle)"),
+            _oracle_close(torch, dv, dv_tc, f"{label} dv (tensor-core "
+                          "oracle)"))
+        oracle = (f"; |kernel - tensor-core oracle| at most "
+                  f"{errs['oracle_flash_attention']:.2f} (B3) and "
+                  f"{errs['oracle_flash_bwd_dkv']:.2f} (B5) of the bar")
     ids = "" if seg is None else ", segment ids"
     print(f"  {label}: B={b} H={h} G={k.shape[1]} N={n_q} d={d} {dtype}"
           f"{ids}: max|kernel - plain| B3 {errs['flash_attention']:.3e}, B4 "
-          f"{errs['flash_bwd_dq']:.3e}, B5 {errs['flash_bwd_dkv']:.3e}")
+          f"{errs['flash_bwd_dq']:.3e}, B5 {errs['flash_bwd_dkv']:.3e}"
+          f"{oracle}")
     return errs
 
 
 def phase3_flash_kernels(torch, np) -> dict:
     """B3, B4 and B5 against their plain versions on edge shapes.  Returns
     {wrapper name: max |kernel - plain|}."""
-    errs = {"flash_attention": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    errs = {"flash_attention": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+            "oracle_flash_attention": 0.0, "oracle_flash_bwd_dkv": 0.0}
     for i, (label, (b, h, g, n, d), dtype, causal, window,
             lens) in enumerate(FLASH_CASES):
         q, k, v, do = _flash_inputs(torch, np, b, h, g, n, d, dtype,
@@ -620,7 +736,8 @@ def phase3_flash_kernels(torch, np) -> dict:
         lens_t = (None if lens is None else
                   torch.tensor(lens, dtype=torch.int32, device="cuda"))
         got = _check_flash(torch, q, k, v, do, lens_t, causal, window, label)
-        errs = {key: max(errs[key], got[key]) for key in errs}
+        errs = {key: max(errs[key], got.get(key, 0.0))
+                for key in errs}
     return errs
 
 
@@ -668,10 +785,14 @@ SEG_FLASH_CASES = [
      (2, 2, 2, 33, 32), "bfloat16", None, (33, 10),
      lambda np: [[(i + 1, i, i + 1) for i in range(33)], []]),
 ]
+SEG_FLASH_CASES += [(f"{c[0]} (bf16)", c[1], "bfloat16", *c[3:])
+                    for c in SEG_FLASH_CASES if c[2] == "float32"]
 # Unsegmented cases (FLASH_CASES labels) rerun with all-ones ids, which
 # must give the unsegmented kernels' outputs bit for bit.
 ONES_CASES = ("N = 1000, GQA 4:2, ragged", "d = 256, ragged, GQA 2:1",
-              "bf16, GQA 8:2, ragged", "bf16, d = 256, window 32")
+              "bf16, GQA 8:2, ragged", "bf16, d = 256, window 32",
+              "N = 1000, GQA 4:2, ragged (bf16)",
+              "d = 130, window 16 (bf16)", "GQA 8:1, window 64 (bf16)")
 
 
 def _span_ids(torch, b, n, rows):
@@ -705,7 +826,8 @@ def phase3_segmented_flash_kernels(torch, np) -> dict:
     """The segmented B3, B4 and B5 against their plain versions on packed
     edge cases, and all-ones ids against no ids, bit for bit.  Returns
     {wrapper name: max |kernel - plain|}."""
-    errs = {"flash_attention": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    errs = {"flash_attention": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+            "oracle_flash_attention": 0.0, "oracle_flash_bwd_dkv": 0.0}
     for i, (label, (b, h, g, n, d), dtype, window, lens,
             rows) in enumerate(SEG_FLASH_CASES):
         q, k, v, do = _flash_inputs(torch, np, b, h, g, n, d, dtype,
@@ -715,7 +837,8 @@ def phase3_segmented_flash_kernels(torch, np) -> dict:
         seg = _span_ids(torch, b, n, rows(np))
         got = _check_flash(torch, q, k, v, do, lens_t, True, window, label,
                            seg=seg)
-        errs = {key: max(errs[key], got[key]) for key in errs}
+        errs = {key: max(errs[key], got.get(key, 0.0))
+                for key in errs}
     cases = {c[0]: c for c in FLASH_CASES}
     for i, label in enumerate(ONES_CASES):
         _, (b, h, g, n, d), dtype, causal, window, lens = cases[label]
@@ -765,8 +888,8 @@ def _flash_bounds(torch, q, k, lens, causal, window, seg=None):
     kv); the products on the live pairs of this run's masks (4, 6 and 8
     flops a pair and element of d) at the card's peak rate for the input
     type: the bf16 tensor cores for bf16 inputs, f32 outside the tensor
-    cores for f32 inputs.  The f32 SIMT bound, the rate the kernels compute
-    at, stands beside it."""
+    cores for f32 inputs.  The f32 SIMT bound (the rate of the f32 kernels
+    and of B4) stands beside it."""
     b, h, n_q, d = q.shape
     g, n_k = k.shape[1], k.shape[2]
     lens = [n_q] * b if lens is None else [int(x) for x in lens.tolist()]
@@ -856,10 +979,11 @@ def flash_kernel_times(torch, q, k, v, do, lens, causal, window, card,
         ms, call_ms, plain_ms, plain_call_ms = _kernel_times(
             torch, kernel, plain, n_iter, plain_iter)
         bd = bounds[name]
+        tflops = bd["flops"] / (ms * 1e-3) / 1e12
         rows[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
                       "plain_call_ms": plain_call_ms,
                       "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
-                      "library_ms": library[name],
+                      "library_ms": library[name], "tflops": tflops,
                       "f32_simt_bound_ms": bd["f32_simt_bound_ms"]}
         lib = ("none" if library[name] is None
                else f"{library[name] * 1e3:.2f} us")
@@ -872,9 +996,9 @@ def flash_kernel_times(torch, q, k, v, do, lens, causal, window, card,
               f"{bd['bound_by']} ({bd['bytes']} B, {bd['flops']} flop on "
               f"{bd['pairs']} live pairs at "
               f"{bd['rate'] / 1e12:.0f} TFLOP/s; "
-              f"{bd['f32_simt_bound_ms'] * 1e3:.2f} us at the f32 SIMT rate "
-              f"the kernel computes at), {ms / bd['bound_ms']:.2f}x the "
-              f"bound; SDPA {lib}  [{card}]")
+              f"{bd['f32_simt_bound_ms'] * 1e3:.2f} us at the f32 SIMT "
+              f"rate), {ms / bd['bound_ms']:.2f}x the bound, {tflops:.1f} "
+              f"TFLOP/s achieved; SDPA {lib}  [{card}]")
     return rows
 
 
@@ -1693,6 +1817,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
     print(f"build seconds: {time.perf_counter() - tb:.2f}")
+    phase2_tensor_cores(kbuild, logs)
 
     # 3. Kernels against their plain versions --------------------------------
     _phase("3 kernels against plain versions", t0)
@@ -1806,8 +1931,11 @@ def main() -> int:
             "replaces": f"src/repro/kernels/flash_attention.py{line}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": flash_errs[name],
+            **({"oracle_bar_fraction": flash_errs["oracle_" + name]}
+               if "oracle_" + name in flash_errs else {}),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")},
+                                         "bound_by", "library_ms",
+                                         "tflops")},
             "library": ("scaled_dot_product_attention forward" if name ==
                         "flash_attention" else "scaled_dot_product_attention"
                         " backward, B4 + B5 together"),
@@ -1823,8 +1951,11 @@ def main() -> int:
             "launches_by_path": {"serve": 0,
                                  "train_packed": seg_soft_launches[name]},
             "max_abs_err": seg_flash_errs[name],
+            **({"oracle_bar_fraction": seg_flash_errs["oracle_" + name]}
+               if "oracle_" + name in seg_flash_errs else {}),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")},
+                                         "bound_by", "library_ms",
+                                         "tflops")},
             "library": ("scaled_dot_product_attention forward" if name ==
                         "flash_attention" else "scaled_dot_product_attention"
                         " backward, B4 + B5 together") + ", block-diagonal "

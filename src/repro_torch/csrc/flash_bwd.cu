@@ -19,30 +19,67 @@
 // dq = 0 and masked keys dk = dv = 0.  The mask is the forward's: length,
 // causal, window and, for packed rows (SEG), equal nonzero segment ids.
 //
-// Design.  B4 has B3's grid: one block per (b, h, 64-row q-tile) walking the
-// kv tiles the q-tile can see, with Q and dO staged for the whole walk; per
-// kv tile it forms S = Q K^T and dP = dO V^T as register-tiled f32 products,
-// then ds, then dq += dS K.  B5 turns the walk around: one block per (b, g,
-// kv-tile) holds K and V, loops over the group's query heads and over the
-// q-tiles that can see this kv-tile (from the causal diagonal to the window's
-// far edge and q_len), and accumulates dv += P^T dO and dk += dS^T Q in f32
-// registers.  The Pallas kernel accumulates per query head and the wrapper
-// group-sums; summing over the group inside the block writes kv-head
-// outputs once.  With segment ids both kernels skip, before loading it, a
-// tile whose nonzero-id range is disjoint from the block's own tile or
-// that is all padding (`_block_relevant`, as in flash_fwd.cu), and hold
-// each thread's row and column ids in registers for the per-pair mask.
-// IEEE f32 throughout: fmaf, expf; bf16 converted on load.
+// Design.  B4 (every dtype) has the f32 forward's grid: one block per (b,
+// h, 64-row q-tile) walking the kv tiles the q-tile can see, with Q and dO
+// staged for the whole walk; per kv tile it forms S = Q K^T and dP = dO V^T
+// as register-tiled f32 products, then ds, then dq += dS K.  B5 turns the
+// walk around: one block per (b, g, kv-tile) holds K and V, loops over the
+// group's query heads and over the q-tiles that can see this kv-tile (from
+// the causal diagonal to the window's far edge and q_len), and accumulates
+// dv += P^T dO and dk += dS^T Q in f32 registers.  The Pallas kernel
+// accumulates per query head and the wrapper group-sums; summing over the
+// group inside the block writes kv-head outputs once.  With segment ids
+// both kernels skip, before loading it, a tile whose nonzero-id range is
+// disjoint from the block's own tile or that is all padding
+// (`_block_relevant`, as in flash_fwd.cu), and hold the ids of each
+// thread's rows and columns in registers for the per-pair mask.
+//
+// B5 has two kernels, picked by dtype in flash_bwd_dkv():
+//
+// bf16: the tensor cores (flash_bwd_dkv_wgmma_kernel).  Two warpgroups of
+// 64 keys each (128-key kv tiles; one warpgroup of 64 keys for d > 128,
+// whose output columns split into blocks of 128).  K and V are staged
+// once; Q, dO, lse and delta of each kept (head, 64-query tile) item go
+// through a ring of two stages, the next item loading by coalesced 16-byte
+// cp.async while this one computes (hopper_mma.cuh's tiles).  Every
+// accumulator has key rows: S^T = K Q^T and dP^T = V dO^T by wgmma from
+// shared memory (K-major); P^T = exp(S^T scale - lse) (one FMA and one
+// MUFU.EX2) and dS^T = P^T (dP^T - delta) in registers, masked as the
+// forward on tiles that a warp's keys do not see in full, with lse and
+// delta broadcast along the query columns; then dV += P^T dO and dK +=
+// dS^T Q by wgmma with P^T
+// and dS^T rounded to bf16 in registers as the A operand and dO, Q read
+// MN-major from the tiles the first two products read K-major.  The
+// epilogue scales dk, rounds both to bf16 and writes each key row once;
+// masked keys read exactly 0.
+//
+// f32: the SIMT cores (flash_bwd_dkv_kernel), 64-key kv tiles, P^T and
+// dS^T through shared memory, IEEE f32 throughout (fmaf, expf; no TF32).
+// B4 is that design for both dtypes, bf16 converted on load.
+//
+// Parity.  The products of two bf16 inputs (S^T, dP^T) are exact f32 sums
+// in another order than the Pallas reference's f32 products; P^T and dS^T
+// are rounded to bf16 before dV and dK (as SDPA and Hopper flash kernels
+// do), whose sums stay f32, and dk, dv are bf16 anyway.
+// kernels/ref.py::flash_bwd_dkv_tc_oracle computes B5 with these rounding
+// points; chip_smoke.py holds the kernel to it within 2 bf16 spacings of
+// each row's max (+1e-6), and to the f32 plain version at the bf16 bar.
 //
 // Bound.  On phi3-mini-3.8b's training shape (B = 4, H = G = 32, N = 1024,
 // d = 96, causal, bf16 in) B4 does three products (S, dP, dS K), 38.7 GFLOP,
 // 39 us at the 989 TFLOP/s bf16 tensor-core peak, against ~127 MB (38 us);
 // B5 four (S, dP, P^T dO, dS^T Q), 51.5 GFLOP, 52 us, against ~151 MB
-// (45 us).  Both functions are bound by operations.  This design computes
-// in IEEE f32 on the SIMT cores, which caps them at 577 and 770 us
-// (67 TFLOP/s); the tensor-core redesign is later work.
+// (45 us).  Both functions are bound by operations.  B4 computes in IEEE
+// f32 on the SIMT cores, which caps it at 577 us (67 TFLOP/s).  The bf16
+// B5 runs its four products and the elementwise step one after the other
+// in a warpgroup, one block a multiprocessor (213-217 registers a thread
+// at d = 96), so the tensor cores idle through the exps.
 
 #include "flash_common.cuh"
+#include "hopper_mma.cuh"
+
+// Warpgroups (64 keys each) of a bf16 B5 block at d <= 128.
+#define DKV_TC_WG 2
 
 // B4: dq.
 template <typename T, int NK, int BQ, int BK, bool SEG>
@@ -268,6 +305,247 @@ __global__ void __launch_bounds__(FLASH_THREADS)
   }
 }
 
+// B5 for bf16: tensor-core products (see the note at the top).  Rows of
+// every accumulator are keys; NWG warpgroups of 64 keys each.
+template <int NK, bool SEG, int NWG>
+__global__ void __launch_bounds__(128 * NWG, 1)
+    flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               const __nv_bfloat16* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               const int* __restrict__ q_lens,
+                               const int* __restrict__ kv_lens,
+                               const int* __restrict__ q_seg,
+                               const int* __restrict__ kv_seg,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int H, int G,
+                               int Nq, int Nk, int d, float scale, int causal,
+                               int window, int vec) {
+  constexpr int DP = 16 * NK, KT = 64 * NWG, QT = 64, NT = 128 * NWG;
+  constexpr int DN = DP > 128 ? 128 : DP;  // output columns of one block
+  constexpr int NSPLIT = DP / DN;
+  constexpr uint32_t KV_BYTES = tile_bytes<KT, DP>();
+  constexpr uint32_t QO_BYTES = tile_bytes<QT, DP>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sK = smem_addr(smem);
+  const uint32_t sV = sK + KV_BYTES;
+  const uint32_t sQ = sV + KV_BYTES;      // two stages
+  const uint32_t sO = sQ + 2 * QO_BYTES;  // dO, two stages
+  float* sL = reinterpret_cast<float*>(smem + 2 * KV_BYTES +
+                                       4 * QO_BYTES);  // lse * log2 e
+  float* sD = sL + 2 * QT;                             // delta
+
+  const int k0 = (blockIdx.x / NSPLIT) * KT, n0 = (blockIdx.x % NSPLIT) * DN;
+  const int g = blockIdx.y, b = blockIdx.z, group = H / G;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int row0 = wg * 64 + warp * 16;  // the warp's 16 keys
+  const int rl = row0 + (lane >> 2);     // keys k0 + rl and k0 + rl + 8
+  const int cl = 2 * (lane & 3);         // queries q0 + 8 j + cl + {0, 1}
+  const int q_len = q_lens[b], kv_len = kv_lens[b];
+  const long long kv_base = ((long long)b * G + g) * Nk * d;
+  const bool vec_ok = vec != 0;
+
+  // Queries [qbeg, qend) that keys [k0, min(k0 + KT, Nk, kv_len)) can see.
+  const int khi = min(min(k0 + KT, Nk), kv_len);
+  int qbeg = causal ? k0 : 0;
+  int qend = min(Nq, q_len);
+  if (window >= 0) qend = min(qend, khi - 1 + window);
+  if (khi <= k0) qend = 0;
+  qbeg = (qbeg / QT) * QT;
+  const int nq = qend > qbeg ? (qend - qbeg + QT - 1) / QT : 0;
+
+  const int* qs_row = SEG ? q_seg + (long long)b * Nq : nullptr;
+  const int* ks_row = SEG ? kv_seg + (long long)b * Nk : nullptr;
+  int sk[2] = {0, 0}, k_lo = 0, k_hi = 0;
+  int total = group * nq;  // (head, q-tile) items, head-major
+  if constexpr (SEG) {
+    sk[0] = seg_at(ks_row, k0 + rl, Nk);
+    sk[1] = seg_at(ks_row, k0 + rl + 8, Nk);
+    seg_range<KT>(ks_row, k0, Nk, &k_lo, &k_hi);
+    if (k_lo > k_hi) total = 0;  // an all-padding kv-tile is seen by none
+  }
+  // The first kept item at or after `it`, computed by every warp alike.
+  auto next_kept = [&](int it) {
+    if constexpr (SEG) {
+      for (; it < total; ++it) {
+        int q_lo, q_hi;
+        seg_range<QT>(qs_row, qbeg + (it % nq) * QT, Nq, &q_lo, &q_hi);
+        if (seg_overlap(q_lo, q_hi, k_lo, k_hi)) break;
+      }
+    }
+    return it;
+  };
+  // Q, dO, lse and delta of item `it` into stage `st`.
+  auto stage_item = [&](int it, int st) {
+    const int h = g * group + it / nq, q0 = qbeg + (it % nq) * QT;
+    const long long row_base = ((long long)b * H + h) * Nq;
+    stage_tile<QT, DP>(sQ + st * QO_BYTES, q + row_base * d, q0, Nq, d,
+                       vec_ok, tid, NT);
+    stage_tile<QT, DP>(sO + st * QO_BYTES, dout + row_base * d, q0, Nq, d,
+                       vec_ok, tid, NT);
+    for (int t = tid; t < QT; t += NT) {
+      const int row = q0 + t;
+      const float L = row < Nq ? lse[row_base + row] : FLASH_NEG_INF;
+      sL[st * QT + t] = L <= FLASH_NEG_INF ? FLASH_NEG_INF : L * FLASH_LOG2E;
+      sD[st * QT + t] = row < Nq ? delta[row_base + row] : 0.f;
+    }
+  };
+
+  float adk[DN / 2], adv[DN / 2];
+#pragma unroll
+  for (int r = 0; r < DN / 2; ++r) adk[r] = adv[r] = 0.f;
+  const float sl2 = scale * FLASH_LOG2E;
+
+  stage_tile<KT, DP>(sK, k + kv_base, k0, Nk, d, vec_ok, tid, NT);
+  stage_tile<KT, DP>(sV, v + kv_base, k0, Nk, d, vec_ok, tid, NT);
+  int it = next_kept(0);
+  if (it < total) stage_item(it, 0);
+  cp_async_commit();
+  int buf = 0;
+  while (it < total) {
+    // Prefetch the next kept item into the other stage, then wait for this
+    // one (the other stage was last read before the previous barrier).
+    const int nx = next_kept(it + 1);
+    if (nx < total) {
+      stage_item(nx, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const int q0 = qbeg + (it % nq) * QT;
+    const uint32_t qb = sQ + buf * QO_BYTES, ob = sO + buf * QO_BYTES;
+    const float* Lb = sL + buf * QT;
+    const float* Db = sD + buf * QT;
+
+    // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 keys.
+    float st[32], dpt[32];
+#pragma unroll
+    for (int r = 0; r < 32; ++r) st[r] = dpt[r] = 0.f;
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < NK; ++ks)
+      wgmma_ss_n64(st, desc_k_major<KT>(sK, wg * 64, 16 * ks),
+                   desc_k_major<QT>(qb, 0, 16 * ks), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < NK; ++ks)
+      wgmma_ss_n64(dpt, desc_k_major<KT>(sV, wg * 64, 16 * ks),
+                   desc_k_major<QT>(ob, 0, 16 * ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T = 2^(S^T scale log2 e - lse log2 e) and dS^T = P^T (dP^T -
+    // delta).  A tile that is live throughout for this warp's keys (and
+    // with SEG all in one document) takes no mask; otherwise p is 0 off
+    // the forward's mask, so empty queries (lse = NEG_INF) stay 0.  Both
+    // paths round alike.
+    bool full = tile_full(q0, QT, k0 + row0, 16, q_len, kv_len, causal,
+                          window);
+    if constexpr (SEG) {
+      const int qid = seg_uniform<QT>(qs_row, q0, Nq);
+      full = __all_sync(0xffffffffu,
+                        full && qid != 0 && sk[0] == qid && sk[1] == qid);
+    }
+    if (full) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float L = Lb[8 * j + cl + c], D = Db[8 * j + cl + c];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = 4 * j + 2 * i + c;
+            const float p = ex2_ftz(__fmaf_rn(st[r], sl2, -L));
+            st[r] = p;
+            dpt[r] = __fmul_rn(p, __fsub_rn(dpt[r], D));
+          }
+        }
+    } else {
+      uint32_t live = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qp = q0 + 8 * j + cl + c;
+          const int sq = SEG ? seg_at(qs_row, qp, Nq) : 0;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const bool ok = pair_valid<SEG>(qp, k0 + rl + 8 * i, q_len,
+                                            kv_len, causal, window, sq,
+                                            sk[i]);
+            live |= (uint32_t)ok << (4 * j + 2 * i + c);
+          }
+        }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float L = Lb[8 * j + cl + c], D = Db[8 * j + cl + c];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = 4 * j + 2 * i + c;
+            const float p = (live >> r) & 1u
+                                ? ex2_ftz(__fmaf_rn(st[r], sl2, -L))
+                                : 0.f;
+            st[r] = p;
+            dpt[r] = __fmul_rn(p, __fsub_rn(dpt[r], D));
+          }
+        }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to bf16 in
+    // registers as the A operand; dO and Q MN-major, output columns
+    // [n0, n0 + DN).
+    uint32_t ap[4][4], as[4][4];
+#pragma unroll
+    for (int s4 = 0; s4 < 4; ++s4) {
+      acc_to_a(st, s4, ap[s4]);
+      acc_to_a(dpt, s4, as[s4]);
+    }
+    fence_regs(adv);
+    fence_regs(adk);
+    wgmma_fence();
+#pragma unroll
+    for (int s4 = 0; s4 < 4; ++s4)
+      wgmma_rs<DN>(adv, ap[s4], desc_mn_major<QT>(ob, 16 * s4, n0));
+#pragma unroll
+    for (int s4 = 0; s4 < 4; ++s4)
+      wgmma_rs<DN>(adk, as[s4], desc_mn_major<QT>(qb, 16 * s4, n0));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(adv);
+    fence_regs(adk);
+    __syncthreads();  // every warpgroup is done with this stage
+    buf ^= 1;
+    it = nx;
+  }
+  cp_async_wait<0>();  // K and V were staged even when no item is kept
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + rl + 8 * i;
+    if (row >= Nk) continue;
+    __nv_bfloat16* dk_row = dk + kv_base + (long long)row * d;
+    __nv_bfloat16* dv_row = dv + kv_base + (long long)row * d;
+#pragma unroll
+    for (int j = 0; j < DN / 8; ++j) {
+      const int col = n0 + 8 * j + cl, r = 4 * j + 2 * i;
+      store_bf16_pair(dk_row, col, d, __fmul_rn(scale, adk[r]),
+                      __fmul_rn(scale, adk[r + 1]));
+      store_bf16_pair(dv_row, col, d, adv[r], adv[r + 1]);
+    }
+  }
+}
+
 template <typename T, int NK, bool SEG>
 static int launch_dq(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
@@ -313,19 +591,33 @@ static int launch_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-#define FLASH_BWD_SWITCH(CALL)     \
-  switch (flash_nk(d)) {           \
-    case 2:                        \
-      return CALL(2);              \
-    case 4:                        \
-      return CALL(4);              \
-    case 6:                        \
-      return CALL(6);              \
-    case 8:                        \
-      return CALL(8);              \
-    default:                       \
-      return CALL(16);             \
-  }
+template <int NK, bool SEG>
+static int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, const int* q_lens,
+                            const int* kv_lens, const int* q_seg,
+                            const int* kv_seg, void* dk, void* dv, int B,
+                            int H, int G, int Nq, int Nk, int d, float scale,
+                            int causal, int window, cudaStream_t stream) {
+  // Two warpgroups share the staged Q and dO; at d > 128 one, for shared
+  // memory and registers.
+  constexpr int DP = 16 * NK, NWG = NK > 8 ? 1 : DKV_TC_WG, KT = 64 * NWG;
+  constexpr int QT = 64, NSPLIT = DP > 128 ? DP / 128 : 1;
+  constexpr size_t smem =
+      2 * tile_bytes<KT, DP>() + 4 * tile_bytes<QT, DP>() + 4 * QT * 4;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<NK, SEG, NWG>;
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t err = set_smem_once(smem_set, kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = bf16_rows_vec(d, q, k, v, dout);
+  dim3 grid((Nk + KT - 1) / KT * NSPLIT, G, B);
+  kernel<<<grid, 128 * NWG, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, lse, delta,
+      q_lens, kv_lens, q_seg, kv_seg, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+      H, G, Nq, Nk, d, scale, causal, window, vec);
+  return (int)cudaGetLastError();
+}
 
 static bool bad_args(int B, int H, int G, int Nq, int Nk, int d,
                      const int* q_seg, const int* kv_seg) {
@@ -358,7 +650,7 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
                     : launch_dq<__nv_bfloat16, NK, false>(DQ_ARGS))        \
            : (q_seg ? launch_dq<float, NK, true>(DQ_ARGS)                  \
                     : launch_dq<float, NK, false>(DQ_ARGS)))
-  FLASH_BWD_SWITCH(DQ_CALL)
+  FLASH_NK_SWITCH(DQ_CALL)
 #undef DQ_CALL
 #undef DQ_ARGS
 }
@@ -377,11 +669,11 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
   q, k, v, dout, lse, delta, q_lens, kv_lens, q_seg, kv_seg, dk, dv, B, H,  \
       G, Nq, Nk, d, scale, causal, window, s
 #define DKV_CALL(NK)                                                        \
-  (is_bf16 ? (q_seg ? launch_dkv<__nv_bfloat16, NK, true>(DKV_ARGS)        \
-                    : launch_dkv<__nv_bfloat16, NK, false>(DKV_ARGS))      \
+  (is_bf16 ? (q_seg ? launch_dkv_wgmma<NK, true>(DKV_ARGS)                 \
+                    : launch_dkv_wgmma<NK, false>(DKV_ARGS))               \
            : (q_seg ? launch_dkv<float, NK, true>(DKV_ARGS)                \
                     : launch_dkv<float, NK, false>(DKV_ARGS)))
-  FLASH_BWD_SWITCH(DKV_CALL)
+  FLASH_NK_SWITCH(DKV_CALL)
 #undef DKV_CALL
 #undef DKV_ARGS
 }

@@ -8,10 +8,12 @@
 // instantiated for SEG true and false, and a null pointer runs the SEG =
 // false code, which reads no id.
 //
-// Tiles.  Every block runs 256 threads as a 16 x 16 grid (ty, tx).  A score
-// tile of ROWS x COLS gives thread (ty, tx) rows ty*RI + i (RI = ROWS/16)
-// and columns tx + 16*j (CJ = COLS/16): the 16 threads of a row sit in one
-// half-warp, so a row's max and sum are four __shfl_xor_sync steps.  An
+// SIMT tiles (B4, and B3 and B5 for f32; the bf16 tensor-core kernels lay
+// out theirs as hopper_mma.cuh says).  Every block runs 256 threads as a
+// 16 x 16 grid (ty, tx).  A score tile of ROWS x COLS gives thread (ty, tx)
+// rows ty*RI + i (RI = ROWS/16) and columns tx + 16*j (CJ = COLS/16): the
+// 16 threads of a row sit in one half-warp, so a row's max and sum are
+// four __shfl_xor_sync steps.  An
 // output accumulator of ROWS x d gives the same thread the same rows and
 // columns tx + 16*k, k < NK (16*NK >= d).  Tiles are staged in shared memory
 // as f32 with a row stride LD = 16*NK + 4: columns past d are zero, a row
@@ -29,6 +31,8 @@
 #define FLASH_THREADS 256
 // -0.7 * FLT_MAX, the JAX package's finite "minus infinity".
 #define FLASH_NEG_INF (-0.7f * 3.402823466e38f)
+#define FLASH_LOG2E 1.4426950408889634f
+#define FLASH_LN2 0.6931471805599453f
 
 // Raises a kernel's dynamic shared-memory limit on the current device once
 // per device: bit `dev` of `done`, one word per kernel instantiation.  Call
@@ -187,6 +191,21 @@ __device__ __forceinline__ void seg_range(const int* row, int p0, int n,
   *hi = mx;
 }
 
+// The id that every position [p0, p0 + N) of a row of n ids carries, when
+// all carry the same nonzero id (positions past n count as padding), else
+// 0; computed by every warp on its own.  A tile pair whose rows and
+// columns all carry one id needs no segment test per pair.
+template <int N>
+__device__ __forceinline__ int seg_uniform(const int* row, int p0, int n) {
+  const int lane = threadIdx.x & 31;
+  const int first = seg_at(row, p0, n);
+  bool same = true;
+#pragma unroll
+  for (int t = lane; t < N; t += 32)
+    same = same && seg_at(row, p0 + t, n) == first;
+  return __all_sync(0xffffffffu, same) && first != 0 ? first : 0;
+}
+
 // _block_relevant's segment test: can two tiles with these id ranges hold
 // an equal nonzero pair?  Exact for monotone ids, conservative otherwise:
 // it only drops tiles that the per-pair mask would mask in full.
@@ -214,6 +233,18 @@ __device__ __forceinline__ void key_range(int q0, int rows, int nq, int nk,
   *kend = hi;
 }
 
+// True when every (query, key) pair of [q0, q0 + qr) x [k0, k0 + kr) is
+// live by length, causality and window (segment ids aside): such a tile
+// needs no per-pair mask.
+__device__ __forceinline__ bool tile_full(int q0, int qr, int k0, int kr,
+                                          int q_len, int kv_len, int causal,
+                                          int window) {
+  bool ok = q0 + qr <= q_len && k0 + kr <= kv_len;
+  if (causal) ok = ok && k0 + kr - 1 <= q0;
+  if (window >= 0) ok = ok && k0 > q0 + qr - 1 - window;
+  return ok;
+}
+
 // The largest d a kernel instantiation takes, for NK = ceil(d/16) rounded up
 // to the instantiated set {2, 4, 6, 8, 16}.
 inline int flash_nk(int d) {
@@ -226,3 +257,18 @@ inline int flash_nk(int d) {
 }
 
 #define FLASH_MAX_D 256
+
+// Expands to a switch over flash_nk(d) that returns CALL(NK).
+#define FLASH_NK_SWITCH(CALL) \
+  switch (flash_nk(d)) {      \
+    case 2:                   \
+      return CALL(2);         \
+    case 4:                   \
+      return CALL(4);         \
+    case 6:                   \
+      return CALL(6);         \
+    case 8:                   \
+      return CALL(8);         \
+    default:                  \
+      return CALL(16);        \
+  }

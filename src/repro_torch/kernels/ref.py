@@ -5,7 +5,16 @@ VJPs — the port of ``repro.kernels.ref`` (``aaren_scan_reference``,
 written with the simplest correct torch so they double as the readable
 spec.  The
 flash oracles are the plain versions of B3–B5 under the JAX oracles'
-signatures.  Only the tests use them."""
+signatures.  Only the tests use them.
+
+Two more oracles pin the rounding points of the bf16 tensor-core forms of
+B3 and B5 (:func:`flash_attention_tc_oracle`,
+:func:`flash_bwd_dkv_tc_oracle`): the products of two bf16 inputs stay
+exact f32 sums, while ``p`` and ``dS`` are rounded to bf16 before the
+products that read them, as the kernels do.  On f32 inputs they round
+nothing and equal the plain versions exactly.  ``chip_smoke.py`` holds the
+kernels to them at a tighter bar than the f32 plain versions; nothing on a
+main path calls them."""
 
 from __future__ import annotations
 
@@ -180,3 +189,64 @@ def flash_vjp_reference(q, k, v, do, *, causal=True, window=None, scale=None,
     args = (q, k, v, do, lse, delta, ql, kl)
     return (fa.flash_bwd_dq_plain(*args, **kw),
             *fa.flash_bwd_dkv_plain(*args, **kw))
+
+
+# The kv tile of the bf16 tensor-core forward (csrc/flash_fwd.cu, FWD_TC_BK):
+# its running row max moves once per tile, and p is rounded against it.
+TC_KV_TILE = 64
+
+
+def flash_attention_tc_oracle(q, k, v, q_lens, kv_lens, *, causal, window,
+                              scale, q_seg=None, kv_seg=None,
+                              kv_tile=TC_KV_TILE):
+    """B3 with the bf16 tensor-core kernel's rounding points.
+
+    As :func:`~repro_torch.kernels.flash_attention.flash_attention_plain`,
+    arguments included, except that for bf16 inputs each ``p`` is rounded
+    to bf16 where the kernel rounds it: against the running row max of
+    the kernel's online softmax, which takes the maximum over the kv tiles
+    ``[0, kv_tile)``, ``[kv_tile, 2 kv_tile)``, ... walked so far, then
+    carried to the final max in f32.  ``l`` sums the unrounded ``p``.
+    Returns (o in q's dtype, lse f32)."""
+    h, g = q.shape[1], k.shape[1]
+    s, mask = fa._scores(q, k, q_lens, kv_lens, causal, window, scale,
+                         q_seg, kv_seg)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.where(mask, torch.exp(s - m), 0.0)
+    l_sum = e.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l_sum == 0.0, 1.0, l_sum)
+    if q.dtype == torch.bfloat16:
+        n_k = s.shape[-1]
+        tiles = -(-n_k // kv_tile)
+        padded = torch.nn.functional.pad(s, (0, tiles * kv_tile - n_k),
+                                         value=NEG_INF)
+        tile_max = padded.unflatten(-1, (tiles, kv_tile)).amax(dim=-1)
+        run = torch.cummax(tile_max, dim=-1).values
+        run = run.repeat_interleave(kv_tile, dim=-1)[..., :n_k]
+        e = torch.where(mask, torch.exp(s - run).to(torch.bfloat16).float()
+                        * torch.exp(run - m), 0.0)
+    ve = torch.repeat_interleave(v, h // g, dim=1).float()
+    o = torch.einsum("bhqk,bhkd->bhqd", e / l_safe, ve)
+    lse = (m + torch.log(l_safe))[..., 0]
+    return o.to(q.dtype), lse
+
+
+def flash_bwd_dkv_tc_oracle(q, k, v, do, lse, delta, q_lens, kv_lens, *,
+                            causal, window, scale, q_seg=None, kv_seg=None):
+    """B5 with the bf16 tensor-core kernel's rounding points: as
+    :func:`~repro_torch.kernels.flash_attention.flash_bwd_dkv_plain`,
+    except that for bf16 inputs ``p`` and ``dS`` are rounded to bf16 before
+    ``dv = pᵀ do`` and ``dk = scale · dSᵀ q`` (f32 sums).  Returns (dk, dv)
+    in k's and v's dtypes."""
+    b, h, _, d = q.shape
+    g, n_k = k.shape[1], k.shape[2]
+    p, ds = fa._p_ds(q, k, v, do, lse, delta, q_lens, kv_lens, causal,
+                     window, scale, q_seg, kv_seg)
+    if q.dtype == torch.bfloat16:
+        p = p.to(torch.bfloat16).float()
+        ds = ds.to(torch.bfloat16).float()
+    dk_h = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dv_h = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
+    dk = dk_h.reshape(b, g, h // g, n_k, d).sum(dim=2)
+    dv = dv_h.reshape(b, g, h // g, n_k, d).sum(dim=2)
+    return dk.to(k.dtype), dv.to(v.dtype)
