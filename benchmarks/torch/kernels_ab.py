@@ -10,13 +10,15 @@ serving tick and the training shape, the flash kernels at the training
 shape, bf16 and f32, without and with segment ids (packed documents).
 
 Outputs: every call must give bit-identical outputs on both sides, except
-the bf16 calls of the kernels in ``CHANGED`` (the ones tree B redesigned:
-B3 and B5, moved to the tensor cores).  For those
-it prints max |A - B| and each side's max |error| against the plain
-version computed in f32 on the same inputs.  The backward kernels of both
-sides read the same ``lse`` and ``delta`` (from the plain forward), so a
-changed B3 does not change B4's or B5's inputs.  Exits 1 when an output
-that must be bit-identical is not.
+the calls of the kernels in ``CHANGED`` (the ones tree B redesigned: B1,
+a chunked parallel scan, in every form; B4 in bf16, moved to the tensor
+cores).  For those it prints max |A - B|, whether ``m`` (B1's maxima) is
+bit-identical, and each side's max |error| against the plain version
+computed in f32 on the same inputs.  The backward kernels of both sides
+read the same residuals (from the plain forwards: B2 the plain scan's
+``o``, ``m``, ``u``; B4 and B5 the plain flash forward's ``lse`` and
+``delta``), so a changed forward does not change a backward's inputs.
+Exits 1 when an output that must be bit-identical is not.
 
     git archive <parent> | tar -x -C build/parent
     python3 benchmarks/torch/kernels_ab.py --a build/parent --b .
@@ -39,15 +41,17 @@ SHAPES = [("serving tick", 256, 16, 96, False),
 # B, H = G, N, d of the flash kernels (causal)
 FLASH_SHAPE = (4, 32, 1024, 96)
 
-# Kernels whose bf16 outputs tree B changed: compared by error, not bits.
-CHANGED = ("B3", "B5")
+# Kernels whose outputs tree B changed, with the dtype of the changed calls
+# (None: every call): compared by error against the plain version, not by
+# bits.
+CHANGED = {"B1": None, "B4": "bf16"}
 
 SIDE = r'''
 import math, statistics, sys
 import numpy as np, torch
 from repro_torch.core.scan_attention import NEG_INF
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels.aaren_scan import aaren_scan
+from repro_torch.kernels.aaren_scan import aaren_scan, aaren_scan_plain
 from repro_torch.kernels.aaren_scan_bwd import aaren_scan_bwd
 
 def graph_ms(fn, n_iter):
@@ -85,11 +89,13 @@ for label, r, n, d, residuals in SHAPES:
     u0 = torch.zeros((r, 1), device="cuda")
     w0 = torch.zeros((r, d), device="cuda")
     fwd = lambda: aaren_scan(s, v, m0, u0, w0, return_residuals=residuals)
-    res = fwd()
-    out[label + " B1"] = as_list(res)
+    out[label + " B1"] = as_list(fwd())
+    plain = aaren_scan_plain(s, v, m0, u0, w0, return_residuals=residuals)
+    out["plain " + label + " B1"] = as_list(plain)
     times = {"B1": graph_ms(fwd, 20)}
     if residuals:
-        o, m_f, u_f, w_f, m_all, u_all = res
+        # B2 reads the plain scan's residuals on both sides.
+        o, m_f, u_f, w_f, m_all, u_all = plain
         args = (s, v, o, m_all, u_all, g, -m_f, torch.ones_like(w_f),
                 -torch.ones_like(u_f))
         out[label + " B2"] = as_list(aaren_scan_bwd(*args))
@@ -135,11 +141,8 @@ for dtype in ("bf16", "f32"):
                  "B5": lambda: fa.flash_bwd_dkv(*args, **bwd_kw)}
         if dtype == "bf16":
             f = [t.float() for t in (q, k, v, do)]
-            out[f"plain flash {form}bf16 B3"] = as_list(
-                fa.flash_attention_plain(*f[:3], lens, lens, **bwd_kw))
-            out[f"plain flash {form}bf16 B5"] = as_list(
-                fa.flash_bwd_dkv_plain(*f, lse, delta, lens, lens,
-                                       **bwd_kw))
+            out[f"plain flash {form}bf16 B4"] = as_list(
+                fa.flash_bwd_dq_plain(*f, lse, delta, lens, lens, **bwd_kw))
         for key, fn in calls.items():
             out[f"flash {form}{dtype} {key}"] = as_list(fn())
             print(f"TIME flash {form}{dtype} {key} "
@@ -196,15 +199,24 @@ def main(argv=None) -> int:
         if key.startswith("plain "):
             continue
         pa, pb = outs["A"][key], outs["B"][key]
-        if " bf16 " in key and key.split()[-1] in CHANGED:
+        kernel = key.split()[-1]
+        if kernel in CHANGED and (CHANGED[kernel] is None
+                                  or f" {CHANGED[kernel]} " in key):
             plain = outs["B"]["plain " + key]
             diff = max((x.float() - y.float()).abs().max().item()
                        for x, y in zip(pa, pb))
             err = {side: max((x.float() - y.float()).abs().max().item()
                              for x, y in zip(outs[side][key], plain))
                    for side in "AB"}
-            print(f"{key}: max |A - B| {diff:.3e}; max |side - plain f32| "
-                  f"A {err['A']:.3e}, B {err['B']:.3e}")
+            maxima = ""
+            if kernel == "B1":  # m_f and, with residuals, m_all
+                same = all(torch.equal(pa[i], pb[i])
+                           for i in range(1, len(pa), 3))
+                maxima = f"; m bit-identical: {same}"
+                if not same:
+                    broken.append(key)
+            print(f"{key}: max |A - B| {diff:.3e}{maxima}; max |side - plain "
+                  f"f32| A {err['A']:.3e}, B {err['B']:.3e}")
             continue
         same = all(torch.equal(x, y) for x, y in zip(pa, pb))
         print(f"{key}: outputs of A and B bit-identical: {same}")

@@ -14,11 +14,12 @@ own error):
    TF32 off for matmuls and cuDNN.
 2. Build every CUDA kernel of the paths from ``src/repro_torch/csrc``, one
    ``nvcc`` per source, all started together; for each instantiation of the
-   bf16 tensor-core kernels (B3 and B5, SEG false and true) the HGMMA
+   bf16 tensor-core kernels (B3, B4 and B5, SEG false and true) the HGMMA
    instructions in ``cuobjdump -sass`` of the built library and ``-Xptxas
    -v``'s registers and spills (a count of 0 fails the run).
 3. Each kernel against its plain PyTorch version on the card: B1 (serving
-   form and residual form) and B2 on edge shapes, the inputs of a real
+   form and residual form) and B2 on edge shapes (B1's at its chunk and
+   window boundaries: N = 63, 64, 65, 513, 1025, d = 130), the inputs of a real
    serving tick at the first and last layer, a small f32 model served on the
    card (kernels) and on the CPU (plain versions) with identical greedy
    tokens, and the same model's loss, every parameter gradient and three
@@ -26,13 +27,16 @@ own error):
    packed rows on edge cases (a flag at token 0 with a carry, a carry with
    no flags, single-token segments, every token flagged, a padding tail and
    an all-padding row, N not a multiple of 32, extreme scores, packed rows
-   at the training N), and all-zero flags against no flags, bit for bit.
+   at the training N, flags at chunk edges, a carry whose first flag lies
+   in chunk 2, a padding tail across a window), and all-zero flags against
+   no flags, bit for bit.
    B3, B4 and B5 on edge shapes (N = 1, odd N, N = 1000, ragged lengths
    with 0 and all-empty rows, window, GQA, d from 32 to 256, f32 and
-   bf16; every f32 case with a bf16 twin), bf16 B3 and B5 also against the
-   tensor-core oracles of ``kernels/ref.py`` at 2 bf16 spacings of each
-   row's max (+1e-6).  The segmented B3, B4 and B5 on packed edge cases (single-token
-   documents, a document straddling 64-row tiles, a padding tail, an
+   bf16; every f32 case with a bf16 twin), bf16 B3, B4 and B5 also against
+   the tensor-core oracles of ``kernels/ref.py`` at 2 bf16 spacings of each
+   row's max (+1e-6; B4 against its oracle in f64 sums, plus the f32 noise
+   of the dP sums its dS cancels).  The segmented B3, B4 and B5 on packed
+   edge cases (single-token documents, a document straddling 64-row tiles, a padding tail, an
    all-padding row, reused non-monotone ids, ids with q/kv lengths, ids
    with a window, GQA, d = 32 and 256, N = 1 and 1000, f32 and bf16, every
    f32 case with a bf16 twin), with padding rows and keys exactly 0 and
@@ -110,6 +114,15 @@ HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 F32_OPS_PER_S = 67e12             # the same, f32 outside the tensor cores
 BF16_DENSE_FLOPS = 989e12         # the same, bf16 dense tensor cores
 TOL = dict(rtol=1e-4, atol=1e-4)  # the JAX suite's bar for these kernels
+# Device times (us) of the designs that B1's chunked scan and bf16 B4's
+# tensor-core kernel replaced (B1: one warp walking a row; B4: SIMT f32),
+# measured by this script's phases 4-4f on an NVIDIA H100 80GB HBM3 at a
+# 700.00 W power limit: printed beside the new times.
+BEFORE_US = {("aaren_scan", "serve"): 13.896,
+             ("aaren_scan", "train"): 1487.10,
+             ("aaren_scan", "train_packed"): 1510.60,
+             ("flash_bwd_dq", "train"): 2321.93,
+             ("flash_bwd_dq", "train_packed"): 1230.75}
 
 
 def _card_line() -> str:
@@ -315,7 +328,8 @@ KERNEL_GROUPS = (
     ("B1 aaren_scan_fwd_kernel", ("aaren_scan_fwd",)),
     ("B2 aaren_scan_bwd_kernel", ("aaren_scan_bwd",)),
     ("B3 flash_fwd_kernel", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
-    ("B4 flash_bwd_dq_kernel", ("flash_bwd_dq_kernel",)),
+    ("B4 flash_bwd_dq_kernel", ("flash_bwd_dq_kernel",
+                                "flash_bwd_dq_wgmma_kernel")),
     ("B5 flash_bwd_dkv_kernel", ("flash_bwd_dkv_kernel",
                                  "flash_bwd_dkv_wgmma_kernel")),
     ("GEMM/GEMV (bf16 and f32)", ("gemm", "gemv", "nvjet", "xmma", "sgemm")),
@@ -392,6 +406,15 @@ EDGE_CASES = [
     ("serving N, padding row + carry", 33, 16, 96, True, (3,), 3.0),
     ("extreme scores (+-80)", 6, 48, 128, True, (), 80.0),
     ("widest d", 5, 33, 256, True, (), 3.0),
+    # B1's chunks of 64 tokens and windows of 8 chunks (csrc/aaren_scan.cu)
+    ("one chunk short, carry", 3, 63, 96, True, (), 3.0),
+    ("one chunk, all-padding row", 3, 64, 96, False, (1,), 3.0),
+    ("one chunk and a token, carry", 3, 65, 96, True, (2,), 3.0),
+    ("a window and a token, carry", 3, 513, 96, True, (0,), 3.0),
+    ("two windows and a token, extreme scores", 2, 1025, 96, True, (),
+     80.0),
+    ("d = 130 (a 2-column slice, unvectorised), carry", 3, 200, 130, True,
+     (1,), 3.0),
 ]
 BWD_ONLY_CASES = [
     ("u == 0 residual positions", 9, 70, 96, True, (), 3.0),
@@ -400,8 +423,9 @@ BWD_ONLY_CASES = [
 ]
 
 
-# The bf16 tensor-core kernels, by library: B3 and B5.
+# The bf16 tensor-core kernels, by library: B3, B4 and B5.
 WGMMA_KERNELS = (("flash_fwd", "flash_fwd_wgmma_kernel"),
+                 ("flash_bwd", "flash_bwd_dq_wgmma_kernel"),
                  ("flash_bwd", "flash_bwd_dkv_wgmma_kernel"))
 
 
@@ -424,7 +448,7 @@ def _ptxas_usage(log: str) -> dict[str, str]:
 
 
 def phase2_tensor_cores(kbuild, logs) -> None:
-    """For every instantiation of the bf16 tensor-core kernels (B3, B5;
+    """For every instantiation of the bf16 tensor-core kernels (B3, B4, B5;
     each head-dim class, SEG false and true): its HGMMA instructions in the
     built library's SASS, and ``-Xptxas -v``'s registers and spills.  Fails
     when an instantiation has no HGMMA."""
@@ -484,6 +508,10 @@ SEG_CASES = [
     ("N % 32 != 0, random flags, carry", 7, 70, 128, True, 3.0),
     ("extreme scores (+-80), docs", 6, 48, 96, True, 80.0),
     ("packed rows at the training N", 8, 1024, 96, False, 3.0),
+    ("flags at chunk edges, carry", 4, 600, 96, True, 3.0),
+    ("carry, first flag in chunk 2", 4, 300, 96, True, 3.0),
+    ("every token flagged across chunks, carry", 3, 130, 96, True, 3.0),
+    ("padding tail across a window, carry", 4, 1030, 96, True, 3.0),
 ]
 
 
@@ -502,6 +530,14 @@ def _segmented_inputs(torch, np, label, r, n, d, carry, spread, seed):
         starts[:, [0, 9]] = True
     elif label.startswith("every token"):
         starts[:] = True
+    elif label.startswith("flags at chunk edges"):
+        starts[:, [63, 64, 127, 128, 511, 512, 575, 576]] = True
+    elif label.startswith("carry, first flag"):
+        starts[:, [140, 141, 255, 256]] = True
+    elif label.startswith("padding tail across"):
+        starts[:, [100, 300, 511]] = True
+        pad[:, 500:] = True
+        pad[1] = True
     elif label.startswith("single-token"):
         starts[:, [3, 4, 5, 11]] = True
         pad[:, 28:] = True
@@ -591,12 +627,21 @@ FLASH_CASES += [(f"{c[0]} (bf16)", c[1], "bfloat16", *c[3:])
 # 2e-5, bf16 2e-2); gradients |kernel - plain| <= rtol * max |plain| + 1e-6.
 FLASH_FWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# bf16 B3 and B5 against the oracles of their rounding points
+# bf16 B3, B4 and B5 against the oracles of their rounding points
 # (kernels/ref.py): both round the same p and dS to bf16, so they differ
 # by the order of f32 sums, a rare p or dS that rounds the other way, and
 # the last rounding of the bf16 output (at most one spacing of a row's
 # max).
 ORACLE_SPACINGS = 2.0
+# B4's dq has rows whose true value is 0 by cancellation: a query that sees
+# only its own key has dS = p (dP - delta) with dP = do . v = delta up to
+# rounding, so any f32 sum leaves noise of the size of f32 rounding of
+# sum_c |do_c v_c|, carried into dq, which grows with d and is not covered
+# by the 1e-6 floor; the f32-sum oracle differs from an f64-sum one there
+# by noise of the same size.  So B4 is held to the f64-sum oracle, with 4
+# f32 ulps (2^-21) of those sums, carried into dq, added to the bar per
+# element (_dq_noise).
+DQ_NOISE_ULPS = 2.0 ** -21
 
 
 def _flash_inputs(torch, np, b, h, g, n, d, dtype, seed):
@@ -617,33 +662,56 @@ def _grad_close(a, b, rtol, what):
     return err
 
 
-def _oracle_close(torch, a, b, what):
-    """The tensor-core oracle bar: on every output row (a query's o, a key's
-    dk or dv), |kernel - oracle| <= ORACLE_SPACINGS bf16 spacings of the
-    row's max |oracle| (the spacing of x is 2^(floor(log2 x) - 7), 0 for
+def _oracle_close(torch, a, b, what, noise=None):
+    """The tensor-core oracle bar: on every output row (a query's o or dq, a
+    key's dk or dv), |kernel - oracle| <= ORACLE_SPACINGS bf16 spacings of
+    the row's max |oracle| (the spacing of x is 2^(floor(log2 x) - 7), 0 for
     x = 0) + 1e-6, the f32 noise floor of FLASH_GRAD_TOL's bar where the
-    true value is 0.  Returns the worst row's |kernel - oracle| as a
-    fraction of its bar (at most 1)."""
+    true value is 0, + ``noise`` (per element, when given).  Returns the
+    worst |kernel - oracle| as a fraction of its bar (at most 1)."""
     a, b = a.float(), b.float()
     _require(bool(a.isfinite().all()), f"{what}: kernel output not finite")
     row_max = b.abs().amax(dim=-1, keepdim=True)
     spacing = torch.where(row_max > 0,
                           torch.exp2(torch.floor(torch.log2(row_max)) - 7),
                           0.0)
-    err = (a - b).abs().amax(dim=-1, keepdim=True)
-    over = err - (ORACLE_SPACINGS * spacing + 1e-6)
+    bar = ORACLE_SPACINGS * spacing + 1e-6
+    if noise is None:
+        err = (a - b).abs().amax(dim=-1, keepdim=True)
+    else:
+        err, bar = (a - b).abs(), bar + noise
+    over = (err - bar).flatten()
+    worst = over.argmax()
     _require(bool((over <= 0).all()), f"{what}: |kernel - oracle| "
-             f"{err.flatten()[over.flatten().argmax()].item():.3e} on a row "
-             f"whose max |oracle| is "
-             f"{row_max.flatten()[over.flatten().argmax()].item():.3e}, over "
-             f"{ORACLE_SPACINGS} bf16 spacings + 1e-6")
-    return (err / (ORACLE_SPACINGS * spacing + 1e-6)).max().item()
+             f"{err.flatten()[worst].item():.3e} on a row whose max |oracle| "
+             f"is {row_max.expand_as(err).flatten()[worst].item():.3e}, over "
+             f"its bar {bar.expand_as(err).flatten()[worst].item():.3e} "
+             f"({ORACLE_SPACINGS} bf16 spacings + 1e-6"
+             f"{'' if noise is None else ' + f32 noise'})")
+    return (err / bar).max().item()
+
+
+def _dq_noise(torch, args, kw):
+    """Per element of dq: DQ_NOISE_ULPS of each live pair's sum_c |do_ic
+    v_jc|, weighted by p_ij and carried through dq = scale sum_j dS_ij k_j
+    (see DQ_NOISE_ULPS)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do, lse, delta, ql, kl = args
+    group = q.shape[1] // k.shape[1]
+    p, _ = fa._p_ds(*args, kw["causal"], kw["window"], kw["scale"],
+                    kw["q_seg"], kw["kv_seg"])
+    ve, ke = (torch.repeat_interleave(t, group, dim=1).float().abs()
+              for t in (v, k))
+    mag = torch.einsum("bhqd,bhkd->bhqk", do.float().abs(), ve)
+    return DQ_NOISE_ULPS * kw["scale"] * torch.einsum("bhqk,bhkd->bhqd",
+                                                      p * mag, ke)
 
 
 def _check_flash(torch, q, k, v, do, lens, causal, window, label, seg=None):
     """B3, B4 and B5 against their plain versions on the same tensors, with
     segment ids ``seg`` (B, N) for both q and kv when given; for bf16, B3's
-    o and B5's dk, dv also against the tensor-core oracles
+    o, B4's dq and B5's dk, dv also against the tensor-core oracles
     (:func:`_oracle_close`).  Masked queries (by length or padding id) must
     read o = 0 and lse = NEG_INF and get dq = 0, masked keys dk = dv = 0,
     exactly.  Returns the max |kernel - plain| of each, keyed by wrapper
@@ -707,6 +775,11 @@ def _check_flash(torch, q, k, v, do, lens, causal, window, label, seg=None):
              f"{label}: a masked query or key has a nonzero gradient")
     oracle = ""
     if tc:
+        errs["oracle_flash_bwd_dq"] = _oracle_close(
+            torch, dq, ref.flash_bwd_dq_tc_oracle(*args, **kw,
+                                                  sums=torch.float64),
+            f"{label} dq (tensor-core oracle, f64 sums)",
+            noise=_dq_noise(torch, args, kw))
         dk_tc, dv_tc = ref.flash_bwd_dkv_tc_oracle(*args, **kw)
         errs["oracle_flash_bwd_dkv"] = max(
             _oracle_close(torch, dk, dk_tc, f"{label} dk (tensor-core "
@@ -714,7 +787,8 @@ def _check_flash(torch, q, k, v, do, lens, causal, window, label, seg=None):
             _oracle_close(torch, dv, dv_tc, f"{label} dv (tensor-core "
                           "oracle)"))
         oracle = (f"; |kernel - tensor-core oracle| at most "
-                  f"{errs['oracle_flash_attention']:.2f} (B3) and "
+                  f"{errs['oracle_flash_attention']:.2f} (B3), "
+                  f"{errs['oracle_flash_bwd_dq']:.2f} (B4) and "
                   f"{errs['oracle_flash_bwd_dkv']:.2f} (B5) of the bar")
     ids = "" if seg is None else ", segment ids"
     print(f"  {label}: B={b} H={h} G={k.shape[1]} N={n_q} d={d} {dtype}"
@@ -728,7 +802,8 @@ def phase3_flash_kernels(torch, np) -> dict:
     """B3, B4 and B5 against their plain versions on edge shapes.  Returns
     {wrapper name: max |kernel - plain|}."""
     errs = {"flash_attention": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
-            "oracle_flash_attention": 0.0, "oracle_flash_bwd_dkv": 0.0}
+            "oracle_flash_attention": 0.0, "oracle_flash_bwd_dq": 0.0,
+            "oracle_flash_bwd_dkv": 0.0}
     for i, (label, (b, h, g, n, d), dtype, causal, window,
             lens) in enumerate(FLASH_CASES):
         q, k, v, do = _flash_inputs(torch, np, b, h, g, n, d, dtype,
@@ -827,7 +902,8 @@ def phase3_segmented_flash_kernels(torch, np) -> dict:
     edge cases, and all-ones ids against no ids, bit for bit.  Returns
     {wrapper name: max |kernel - plain|}."""
     errs = {"flash_attention": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
-            "oracle_flash_attention": 0.0, "oracle_flash_bwd_dkv": 0.0}
+            "oracle_flash_attention": 0.0, "oracle_flash_bwd_dq": 0.0,
+            "oracle_flash_bwd_dkv": 0.0}
     for i, (label, (b, h, g, n, d), dtype, window, lens,
             rows) in enumerate(SEG_FLASH_CASES):
         q, k, v, do = _flash_inputs(torch, np, b, h, g, n, d, dtype,
@@ -988,9 +1064,12 @@ def flash_kernel_times(torch, q, k, v, do, lens, causal, window, card,
         lib = ("none" if library[name] is None
                else f"{library[name] * 1e3:.2f} us")
         form = "" if seg is None else "segmented "
+        before = BEFORE_US.get((name, "train" if seg is None
+                                else "train_packed"))
+        before = "" if before is None else f"; before {before} us"
         print(f"  {form}{name} at B={b} H={q.shape[1]} G={k.shape[1]} N={n_q} "
               f"d={d} {str(q.dtype).split('.')[-1]}: device {ms * 1e3:.2f} "
-              f"us (eager call {call_ms * 1e3:.2f} us), plain device "
+              f"us (eager call {call_ms * 1e3:.2f} us{before}), plain device "
               f"{plain_ms * 1e3:.2f} us (eager call {plain_call_ms * 1e3:.2f}"
               f" us), bound {bd['bound_ms'] * 1e3:.2f} us by "
               f"{bd['bound_by']} ({bd['bytes']} B, {bd['flops']} flop on "
@@ -1344,7 +1423,8 @@ def phase4_serving(torch, np, card: str):
         lambda: aaren_scan_plain(s, v, m0, u0, w0), 200, 20)
     bound_ms, bound_by, nbytes = _b1_bound(r, n, d, residuals=False)
     print(f"  B1 at R={r} N={n} d={d}: device {kernel_ms * 1e3:.3f} us "
-          f"(eager call {call_ms * 1e3:.2f} us), plain device "
+          f"(eager call {call_ms * 1e3:.2f} us; before "
+          f"{BEFORE_US['aaren_scan', 'serve']} us), plain device "
           f"{plain_ms * 1e3:.2f} us (eager call {plain_call_ms * 1e3:.2f} "
           f"us), bound {bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B)"
           f"  [{card}]")
@@ -1562,8 +1642,11 @@ def phase4b_training(torch, np, card: str, cfg, packed: bool = False):
     out = {}
     for name, (ms, call_ms, plain_ms, plain_call_ms, bound_ms, bound_by,
                nbytes) in rows.items():
+        before = BEFORE_US.get((name, "train_packed" if packed else "train"))
+        before = "" if before is None else f"; before {before} us"
         print(f"  {form}{name} at the training shape R={r} N={n} d={d}: "
-              f"device {ms * 1e3:.2f} us (eager call {call_ms * 1e3:.2f} us), "
+              f"device {ms * 1e3:.2f} us (eager call {call_ms * 1e3:.2f} us"
+              f"{before}), "
               f"plain device {plain_ms * 1e3:.2f} us (eager call "
               f"{plain_call_ms * 1e3:.2f} us), bound {bound_ms * 1e3:.3f} us "
               f"by {bound_by} ({nbytes} B), {ms / bound_ms:.1f}x the bound"

@@ -19,67 +19,88 @@
 // dq = 0 and masked keys dk = dv = 0.  The mask is the forward's: length,
 // causal, window and, for packed rows (SEG), equal nonzero segment ids.
 //
-// Design.  B4 (every dtype) has the f32 forward's grid: one block per (b,
-// h, 64-row q-tile) walking the kv tiles the q-tile can see, with Q and dO
-// staged for the whole walk; per kv tile it forms S = Q K^T and dP = dO V^T
-// as register-tiled f32 products, then ds, then dq += dS K.  B5 turns the
-// walk around: one block per (b, g, kv-tile) holds K and V, loops over the
-// group's query heads and over the q-tiles that can see this kv-tile (from
-// the causal diagonal to the window's far edge and q_len), and accumulates
-// dv += P^T dO and dk += dS^T Q in f32 registers.  The Pallas kernel
-// accumulates per query head and the wrapper group-sums; summing over the
-// group inside the block writes kv-head outputs once.  With segment ids
-// both kernels skip, before loading it, a tile whose nonzero-id range is
-// disjoint from the block's own tile or that is all padding
-// (`_block_relevant`, as in flash_fwd.cu), and hold the ids of each
-// thread's rows and columns in registers for the per-pair mask.
+// Design.  B4 walks the kv tiles a q-tile can see, with Q and dO staged for
+// the whole walk; per kv tile it forms S = Q K^T and dP = dO V^T, then dS,
+// then dq += dS K.  B5 turns the walk around: one block per (b, g,
+// kv-tile) holds K and V, loops over the group's query heads and over the
+// q-tiles that can see this kv-tile (from the causal diagonal to the
+// window's far edge and q_len), and accumulates dv += P^T dO and dk +=
+// dS^T Q in f32 registers.  The Pallas kernel accumulates per query head
+// and the wrapper group-sums; summing over the group inside the block
+// writes kv-head outputs once.  With segment ids both kernels skip, before
+// loading it, a tile whose nonzero-id range is disjoint from the block's
+// own tile or that is all padding (`_block_relevant`, as in flash_fwd.cu),
+// and hold the ids of each thread's rows and columns in registers for the
+// per-pair mask.
 //
-// B5 has two kernels, picked by dtype in flash_bwd_dkv():
+// Each pass has two kernels, picked by dtype in flash_bwd_dq() and
+// flash_bwd_dkv().  bf16 runs on the tensor cores, with hopper_mma.cuh's
+// tiles and products:
 //
-// bf16: the tensor cores (flash_bwd_dkv_wgmma_kernel).  Two warpgroups of
-// 64 keys each (128-key kv tiles; one warpgroup of 64 keys for d > 128,
-// whose output columns split into blocks of 128).  K and V are staged
-// once; Q, dO, lse and delta of each kept (head, 64-query tile) item go
-// through a ring of two stages, the next item loading by coalesced 16-byte
-// cp.async while this one computes (hopper_mma.cuh's tiles).  Every
-// accumulator has key rows: S^T = K Q^T and dP^T = V dO^T by wgmma from
-// shared memory (K-major); P^T = exp(S^T scale - lse) (one FMA and one
-// MUFU.EX2) and dS^T = P^T (dP^T - delta) in registers, masked as the
-// forward on tiles that a warp's keys do not see in full, with lse and
-// delta broadcast along the query columns; then dV += P^T dO and dK +=
-// dS^T Q by wgmma with P^T
-// and dS^T rounded to bf16 in registers as the A operand and dO, Q read
-// MN-major from the tiles the first two products read K-major.  The
-// epilogue scales dk, rounds both to bf16 and writes each key row once;
-// masked keys read exactly 0.
+// B4, bf16 (flash_bwd_dq_wgmma_kernel).  One block per (b, h, q-tile) of
+// DQ_TC_WG warpgroups of 64 query rows (one warpgroup for d > 128, whose
+// dq columns split into blocks of 128); the q-tiles with the most kv tiles
+// launch first.  Q and dO are staged once, K and V of each kept 64-key
+// tile through a ring of two stages, the next tile loading by coalesced
+// 16-byte cp.async while this one computes; lse and delta sit in
+// registers.  Every accumulator has query rows: S = Q K^T and dP = dO V^T
+// by wgmma from shared memory (K-major); P = exp(S scale - lse) (one FMA
+// and one MUFU.EX2) and dS = P (dP - delta) in registers, masked as the
+// forward on tiles that a warp's rows do not see in full; then dQ += dS K
+// by wgmma with dS rounded to bf16 in registers as the A operand and K read
+// MN-major from the tile S read K-major.  dQ stays in f32 registers over
+// the whole walk; the epilogue scales it, rounds it to bf16 and writes each
+// query row once, through shared memory in 16-byte rows.  Masked queries
+// read exactly 0.
 //
-// f32: the SIMT cores (flash_bwd_dkv_kernel), 64-key kv tiles, P^T and
-// dS^T through shared memory, IEEE f32 throughout (fmaf, expf; no TF32).
-// B4 is that design for both dtypes, bf16 converted on load.
+// B5, bf16 (flash_bwd_dkv_wgmma_kernel).  Two warpgroups of 64 keys each
+// (128-key kv tiles; one warpgroup of 64 keys for d > 128, whose output
+// columns split into blocks of 128).  K and V are staged once; Q, dO, lse
+// and delta of each kept (head, 64-query tile) item go through a ring of
+// two stages.  Every accumulator has key rows: S^T = K Q^T and dP^T = V
+// dO^T by wgmma from shared memory (K-major); P^T and dS^T in registers,
+// masked as the forward, with lse and delta broadcast along the query
+// columns; then dV += P^T dO and dK += dS^T Q by wgmma with P^T and dS^T
+// rounded to bf16 in registers as the A operand and dO, Q read MN-major
+// from the tiles the first two products read K-major.  The epilogue
+// scales dk, rounds both to bf16 and writes each key row once; masked keys
+// read exactly 0.
 //
-// Parity.  The products of two bf16 inputs (S^T, dP^T) are exact f32 sums
-// in another order than the Pallas reference's f32 products; P^T and dS^T
-// are rounded to bf16 before dV and dK (as SDPA and Hopper flash kernels
-// do), whose sums stay f32, and dk, dv are bf16 anyway.
-// kernels/ref.py::flash_bwd_dkv_tc_oracle computes B5 with these rounding
-// points; chip_smoke.py holds the kernel to it within 2 bf16 spacings of
-// each row's max (+1e-6), and to the f32 plain version at the bf16 bar.
+// f32: the SIMT cores (flash_bwd_dq_kernel, flash_bwd_dkv_kernel), 64-row
+// tiles, the score products register-tiled, dS^T (and P^T) through shared
+// memory, IEEE f32 throughout (fmaf, expf; no TF32).
+//
+// Parity.  The products of two bf16 inputs (S, dP and their transposes)
+// are exact f32 sums in another order than the Pallas reference's f32
+// products; P and dS are rounded to bf16 before the products that read
+// them (as SDPA and Hopper flash kernels do), whose sums stay f32, and dq,
+// dk, dv are bf16 anyway.  kernels/ref.py::flash_bwd_dq_tc_oracle and
+// flash_bwd_dkv_tc_oracle compute B4 and B5 with these rounding points;
+// chip_smoke.py holds the kernels to them within 2 bf16 spacings of each
+// row's max (+1e-6), and to the f32 plain version at the bf16 bar.  The
+// SEG and plain instantiations round with explicit intrinsics (__fmaf_rn,
+// __fmul_rn) on both the masked and the unmasked path, so all-ones ids
+// give the outputs of no ids bit for bit.
 //
 // Bound.  On phi3-mini-3.8b's training shape (B = 4, H = G = 32, N = 1024,
 // d = 96, causal, bf16 in) B4 does three products (S, dP, dS K), 38.7 GFLOP,
 // 39 us at the 989 TFLOP/s bf16 tensor-core peak, against ~127 MB (38 us);
 // B5 four (S, dP, P^T dO, dS^T Q), 51.5 GFLOP, 52 us, against ~151 MB
-// (45 us).  Both functions are bound by operations.  B4 computes in IEEE
-// f32 on the SIMT cores, which caps it at 577 us (67 TFLOP/s).  The bf16
-// B5 runs its four products and the elementwise step one after the other
-// in a warpgroup, one block a multiprocessor (213-217 registers a thread
-// at d = 96), so the tensor cores idle through the exps.
+// (45 us).  Both functions are bound by operations.  Each warpgroup runs
+// its products and the elementwise step one after the other, so the tensor
+// cores idle through the exps unless another block of the multiprocessor
+// fills the gap.  The f32 kernels are capped by the 67 TFLOP/s SIMT rate
+// (B4 at 577 us).
 
 #include "flash_common.cuh"
 #include "hopper_mma.cuh"
 
 // Warpgroups (64 keys each) of a bf16 B5 block at d <= 128.
 #define DKV_TC_WG 2
+// Warpgroups (64 query rows each) of a bf16 B4 block at d <= 128, and its
+// kv tile.
+#define DQ_TC_WG 2
+#define DQ_TC_BK 64
 
 // B4: dq.
 template <typename T, int NK, int BQ, int BK, bool SEG>
@@ -546,6 +567,226 @@ __global__ void __launch_bounds__(128 * NWG, 1)
   }
 }
 
+// B4 for bf16: tensor-core products (see the note at the top).  Rows of
+// every accumulator are queries; NWG warpgroups of 64 query rows each.
+template <int NK, bool SEG, int NWG>
+__global__ void __launch_bounds__(128 * NWG, 1)
+    flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              const int* __restrict__ q_lens,
+                              const int* __restrict__ kv_lens,
+                              const int* __restrict__ q_seg,
+                              const int* __restrict__ kv_seg,
+                              __nv_bfloat16* __restrict__ dq, int H, int G,
+                              int Nq, int Nk, int d, float scale, int causal,
+                              int window, int vec) {
+  constexpr int DP = 16 * NK, BQ = 64 * NWG, BK = DQ_TC_BK, NT = 128 * NWG;
+  constexpr int DN = DP > 128 ? 128 : DP;  // output columns of one block
+  constexpr int NSPLIT = DP / DN;
+  constexpr uint32_t QO_BYTES = tile_bytes<BQ, DP>();
+  constexpr uint32_t KV_BYTES = tile_bytes<BK, DP>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sQ = smem_addr(smem);
+  const uint32_t sO = sQ + QO_BYTES;      // dO
+  const uint32_t sK = sO + QO_BYTES;      // two stages
+  const uint32_t sV = sK + 2 * KV_BYTES;  // two stages
+
+  // The q-tiles with the most kv tiles first.
+  const int n_qt = gridDim.x / NSPLIT;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x / NSPLIT) * BQ;
+  const int n0 = (blockIdx.x % NSPLIT) * DN;
+  const int h = blockIdx.y, b = blockIdx.z, g = h / (H / G);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int row0 = wg * 64 + warp * 16;  // the warp's 16 query rows
+  const int rl = row0 + (lane >> 2);     // rows q0 + rl and q0 + rl + 8
+  const int cl = 2 * (lane & 3);         // keys kt + 8 j + cl + {0, 1}
+  const int q_len = q_lens[b], kv_len = kv_lens[b];
+  const long long row_base = ((long long)b * H + h) * Nq;
+  const long long qo_base = row_base * d;
+  const long long kv_base = ((long long)b * G + g) * Nk * d;
+  const bool vec_ok = vec != 0;
+
+  // lse * log2 e and delta of the thread's two rows.
+  float L[2], D[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + rl + 8 * i;
+    const float l = row < Nq ? lse[row_base + row] : FLASH_NEG_INF;
+    L[i] = l <= FLASH_NEG_INF ? FLASH_NEG_INF : l * FLASH_LOG2E;
+    D[i] = row < Nq ? delta[row_base + row] : 0.f;
+  }
+
+  const int* qs_row = SEG ? q_seg + (long long)b * Nq : nullptr;
+  const int* ks_row = SEG ? kv_seg + (long long)b * Nk : nullptr;
+  int sq[2] = {0, 0}, q_lo = 0, q_hi = 0;
+  if constexpr (SEG) {
+    sq[0] = seg_at(qs_row, q0 + rl, Nq);
+    sq[1] = seg_at(qs_row, q0 + rl + 8, Nq);
+    seg_range<BQ>(qs_row, q0, Nq, &q_lo, &q_hi);
+  }
+  int kbeg, kend;
+  key_range(q0, BQ, Nq, Nk, q_len, kv_len, causal, window, BK, &kbeg, &kend);
+  if (SEG && q_lo > q_hi) kend = kbeg;  // an all-padding q-tile sees nothing
+  // The first kept kv tile at or after k0, computed by every warp alike.
+  auto next_kept = [&](int k0) {
+    if constexpr (SEG) {
+      for (; k0 < kend; k0 += BK) {
+        int k_lo, k_hi;
+        seg_range<BK>(ks_row, k0, Nk, &k_lo, &k_hi);
+        if (seg_overlap(q_lo, q_hi, k_lo, k_hi)) break;
+      }
+    }
+    return k0;
+  };
+
+  float acc[DN / 2];
+#pragma unroll
+  for (int r = 0; r < DN / 2; ++r) acc[r] = 0.f;
+  const float sl2 = scale * FLASH_LOG2E;
+
+  int kt = next_kept(kbeg);
+  if (kt < kend) {
+    stage_tile<BQ, DP>(sQ, q + qo_base, q0, Nq, d, vec_ok, tid, NT);
+    stage_tile<BQ, DP>(sO, dout + qo_base, q0, Nq, d, vec_ok, tid, NT);
+    stage_tile<BK, DP>(sK, k + kv_base, kt, Nk, d, vec_ok, tid, NT);
+    stage_tile<BK, DP>(sV, v + kv_base, kt, Nk, d, vec_ok, tid, NT);
+    cp_async_commit();
+  }
+  int buf = 0;
+  while (kt < kend) {
+    // Prefetch the next kept kv tile into the other stage, then wait for
+    // this one (the other stage was last read before the previous barrier).
+    const int kn = next_kept(kt + BK);
+    if (kn < kend) {
+      stage_tile<BK, DP>(sK + (buf ^ 1) * KV_BYTES, k + kv_base, kn, Nk, d,
+                         vec_ok, tid, NT);
+      stage_tile<BK, DP>(sV + (buf ^ 1) * KV_BYTES, v + kv_base, kn, Nk, d,
+                         vec_ok, tid, NT);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t kb = sK + buf * KV_BYTES, vb = sV + buf * KV_BYTES;
+
+    // S = Q K^T and dP = dO V^T for this warpgroup's 64 query rows.
+    float s[32], dp[32];
+#pragma unroll
+    for (int r = 0; r < 32; ++r) s[r] = dp[r] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < NK; ++ks)
+      wgmma_ss_n64(s, desc_k_major<BQ>(sQ, wg * 64, 16 * ks),
+                   desc_k_major<BK>(kb, 0, 16 * ks), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < NK; ++ks)
+      wgmma_ss_n64(dp, desc_k_major<BQ>(sO, wg * 64, 16 * ks),
+                   desc_k_major<BK>(vb, 0, 16 * ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P = 2^(S scale log2 e - lse log2 e) and dS = P (dP - delta), dS in
+    // place of dP.  A tile that is live throughout for this warp's rows
+    // (and with SEG all in one document) takes no mask; otherwise p is 0
+    // off the forward's mask, so empty queries (lse = NEG_INF) get dq = 0.
+    // Both paths round alike.
+    bool full = tile_full(q0 + row0, 16, kt, BK, q_len, kv_len, causal,
+                          window);
+    if constexpr (SEG) {
+      const int kid = seg_uniform<BK>(ks_row, kt, Nk);
+      full = __all_sync(0xffffffffu,
+                        full && kid != 0 && sq[0] == kid && sq[1] == kid);
+    }
+    if (full) {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int i = (r >> 1) & 1;
+        const float p = ex2_ftz(__fmaf_rn(s[r], sl2, -L[i]));
+        dp[r] = __fmul_rn(p, __fsub_rn(dp[r], D[i]));
+      }
+    } else {
+      uint32_t live = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int kp = kt + 8 * j + cl + c;
+          const int sk = SEG ? seg_at(ks_row, kp, Nk) : 0;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const bool ok = pair_valid<SEG>(q0 + rl + 8 * i, kp, q_len,
+                                            kv_len, causal, window, sq[i],
+                                            sk);
+            live |= (uint32_t)ok << (4 * j + 2 * i + c);
+          }
+        }
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int i = (r >> 1) & 1;
+        const float p = (live >> r) & 1u
+                            ? ex2_ftz(__fmaf_rn(s[r], sl2, -L[i]))
+                            : 0.f;
+        dp[r] = __fmul_rn(p, __fsub_rn(dp[r], D[i]));
+      }
+    }
+
+    // dQ += dS K: dS rounded to bf16 in registers as the A operand, K read
+    // MN-major (its rows index the keys) from the tile S read K-major;
+    // output columns [n0, n0 + DN).
+    uint32_t as[4][4];
+#pragma unroll
+    for (int s4 = 0; s4 < 4; ++s4) acc_to_a(dp, s4, as[s4]);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int s4 = 0; s4 < 4; ++s4)
+      wgmma_rs<DN>(acc, as[s4], desc_mn_major<BK>(kb, 16 * s4, n0));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // every warpgroup is done with this stage
+    buf ^= 1;
+    kt = kn;
+  }
+
+  // dq = scale acc, rounded to bf16, through shared memory (the K and V
+  // stages are free after the walk's last barrier), then 16-byte rows.
+  constexpr int OS = DN + 8;  // row stride of the dq tile, in elements
+  __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(smem + 2 * QO_BYTES);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < DN / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(so + (rl + 8 * i) * OS + 8 * j +
+                                         cl) =
+          __floats2bfloat162_rn(__fmul_rn(scale, acc[4 * j + 2 * i]),
+                                __fmul_rn(scale, acc[4 * j + 2 * i + 1]));
+  __syncthreads();
+  const int rows = min(BQ, Nq - q0);
+  for (int idx = tid; idx < rows * (DN / 8); idx += NT) {
+    const int r = idx / (DN / 8), c = (idx % (DN / 8)) * 8;
+    if (n0 + c >= d) continue;
+    __nv_bfloat16* dst = dq + qo_base + (long long)(q0 + r) * d + n0 + c;
+    const __nv_bfloat16* src = so + r * OS + c;
+    if (vec_ok) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < 8 && n0 + c + e < d; ++e) dst[e] = src[e];
+    }
+  }
+}
+
 template <typename T, int NK, bool SEG>
 static int launch_dq(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
@@ -588,6 +829,37 @@ static int launch_dkv(const void* q, const void* k, const void* v,
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
       q_lens, kv_lens, q_seg, kv_seg, (T*)dk, (T*)dv, H, G, Nq, Nk, d, scale,
       causal, window);
+  return (int)cudaGetLastError();
+}
+
+template <int NK, bool SEG>
+static int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, const int* q_lens,
+                           const int* kv_lens, const int* q_seg,
+                           const int* kv_seg, void* dq, int B, int H, int G,
+                           int Nq, int Nk, int d, float scale, int causal,
+                           int window, cudaStream_t stream) {
+  // DQ_TC_WG warpgroups share the staged K and V; at d > 128 one, for
+  // shared memory and registers, with dq's columns split over blocks.
+  constexpr int DP = 16 * NK, NWG = NK > 8 ? 1 : DQ_TC_WG, BQ = 64 * NWG;
+  constexpr int NSPLIT = DP > 128 ? DP / 128 : 1;
+  constexpr size_t smem =
+      2 * tile_bytes<BQ, DP>() + 4 * tile_bytes<DQ_TC_BK, DP>();
+  static_assert(4 * tile_bytes<DQ_TC_BK, DP>() >=
+                    BQ * ((DP > 128 ? 128 : DP) + 8) * 2,
+                "the dq tile fits in the K and V stages");
+  auto kernel = flash_bwd_dq_wgmma_kernel<NK, SEG, NWG>;
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t err = set_smem_once(smem_set, kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = bf16_rows_vec(d, q, k, v, dout) && (uintptr_t)dq % 16 == 0;
+  dim3 grid((Nq + BQ - 1) / BQ * NSPLIT, H, B);
+  kernel<<<grid, 128 * NWG, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, lse, delta,
+      q_lens, kv_lens, q_seg, kv_seg, (__nv_bfloat16*)dq, H, G, Nq, Nk, d,
+      scale, causal, window, vec);
   return (int)cudaGetLastError();
 }
 
@@ -646,8 +918,8 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
   q, k, v, dout, lse, delta, q_lens, kv_lens, q_seg, kv_seg, dq, B, H, G,   \
       Nq, Nk, d, scale, causal, window, s
 #define DQ_CALL(NK)                                                         \
-  (is_bf16 ? (q_seg ? launch_dq<__nv_bfloat16, NK, true>(DQ_ARGS)          \
-                    : launch_dq<__nv_bfloat16, NK, false>(DQ_ARGS))        \
+  (is_bf16 ? (q_seg ? launch_dq_wgmma<NK, true>(DQ_ARGS)                   \
+                    : launch_dq_wgmma<NK, false>(DQ_ARGS))                 \
            : (q_seg ? launch_dq<float, NK, true>(DQ_ARGS)                  \
                     : launch_dq<float, NK, false>(DQ_ARGS)))
   FLASH_NK_SWITCH(DQ_CALL)

@@ -8,7 +8,7 @@
 // instantiated for SEG true and false, and a null pointer runs the SEG =
 // false code, which reads no id.
 //
-// SIMT tiles (B4, and B3 and B5 for f32; the bf16 tensor-core kernels lay
+// SIMT tiles (B3, B4 and B5 for f32; the bf16 tensor-core kernels lay
 // out theirs as hopper_mma.cuh says).  Every block runs 256 threads as a
 // 16 x 16 grid (ty, tx).  A score tile of ROWS x COLS gives thread (ty, tx)
 // rows ty*RI + i (RI = ROWS/16) and columns tx + 16*j (CJ = COLS/16): the
@@ -25,33 +25,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <climits>
+
+#include "launch.cuh"
 
 #define FLASH_THREADS 256
 // -0.7 * FLT_MAX, the JAX package's finite "minus infinity".
 #define FLASH_NEG_INF (-0.7f * 3.402823466e38f)
 #define FLASH_LOG2E 1.4426950408889634f
 #define FLASH_LN2 0.6931471805599453f
-
-// Raises a kernel's dynamic shared-memory limit on the current device once
-// per device: bit `dev` of `done`, one word per kernel instantiation.  Call
-// it before the launch, so that a CUDA graph capture of a later launch holds
-// no attribute call.  Two threads racing on a first call set the same value
-// twice; a device past the 64th sets it on every call.
-template <typename K>
-static cudaError_t set_smem_once(std::atomic<unsigned long long>& done,
-                                 K kernel, size_t smem) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

@@ -7,14 +7,16 @@ spec.  The
 flash oracles are the plain versions of B3–B5 under the JAX oracles'
 signatures.  Only the tests use them.
 
-Two more oracles pin the rounding points of the bf16 tensor-core forms of
-B3 and B5 (:func:`flash_attention_tc_oracle`,
-:func:`flash_bwd_dkv_tc_oracle`): the products of two bf16 inputs stay
-exact f32 sums, while ``p`` and ``dS`` are rounded to bf16 before the
-products that read them, as the kernels do.  On f32 inputs they round
-nothing and equal the plain versions exactly.  ``chip_smoke.py`` holds the
-kernels to them at a tighter bar than the f32 plain versions; nothing on a
-main path calls them."""
+Three more oracles pin the rounding points of the bf16 tensor-core forms
+of B3, B4 and B5 (:func:`flash_attention_tc_oracle`,
+:func:`flash_bwd_dq_tc_oracle`, :func:`flash_bwd_dkv_tc_oracle`): the
+products of two bf16 inputs stay exact f32 sums, while ``p`` and ``dS``
+are rounded to bf16 before the products that read them, as the kernels
+do.  On f32 inputs they round nothing and equal the plain versions
+exactly.  ``chip_smoke.py`` holds the kernels to them at a tighter bar
+than the f32 plain versions; nothing on a main path calls them.
+:func:`aaren_scan_chunked_reference` is B1's chunked parallel scan in
+plain torch, the algebra of ``csrc/aaren_scan.cu``."""
 
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import math
 
 import torch
 
-from repro_torch.core.scan_attention import NEG_INF
+from repro_torch.core.scan_attention import NEG_INF, combine_segmented
 from repro_torch.kernels import flash_attention as fa
 
 
@@ -57,6 +59,75 @@ def aaren_scan_reference(s, v, m0=None, u0=None, w0=None):
         w0[:, None, :] / u0_safe[..., None])
     o = w / u[..., None]
     return o, m_pref[:, -1:], u[:, -1:], w[:, -1, :]
+
+
+def aaren_scan_chunked_reference(s, v, m0, u0, w0, segment_starts=None, *,
+                                 chunk=64):
+    """B1 as ``csrc/aaren_scan.cu`` computes it: a chunked parallel scan.
+
+    s: (R, N); v: (R, N, d); m0/u0: (R, 1); w0: (R, d); ``segment_starts``
+    (R, N) bool or None.  The row is cut into chunks of ``chunk`` tokens
+    (the last one short).  Each chunk is reduced from the ⊕ identity by the
+    token recurrence (``m' = max(m, s_i)``, ``a = exp(m - m')``, ``b =
+    exp(s_i - m')``, ``u = u a + b``, ``w = w a + b v_i``; at a flag ``m' =
+    s_i, a = 0, b = 1``) to its aggregate and a "holds a start" flag; the
+    carry-in is folded with the aggregates left to right by
+    :func:`~repro_torch.core.scan_attention.combine_segmented`, which gives
+    each chunk its exclusive carry; the token recurrence then runs again
+    over each chunk from its carry.  Tokens past N are not stepped.
+    Returns (o (R, N, d), m_f (R, 1), u_f (R, 1), w_f (R, d), m (R, N),
+    u (R, N)): the final carry is the state after the last token.
+    """
+    r, n = s.shape
+    d = v.shape[-1]
+    n_chunks = -(-n // chunk)
+    pad = n_chunks * chunk - n
+    s_c = torch.nn.functional.pad(s.float(), (0, pad), value=NEG_INF)
+    s_c = s_c.view(r, n_chunks, chunk)
+    v_c = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    v_c = v_c.view(r, n_chunks, chunk, d)
+    flags = (torch.zeros((r, n), dtype=torch.bool, device=s.device)
+             if segment_starts is None else segment_starts.bool())
+    f_c = torch.nn.functional.pad(flags, (0, pad)).view(r, n_chunks, chunk)
+    live = (torch.arange(n_chunks * chunk, device=s.device) < n).view(
+        n_chunks, chunk)
+
+    def walk(m, u, w, trace=None):
+        """The token recurrence over every chunk at once from (m, u, w):
+        (R, C), (R, C), (R, C, d).  Returns the states and the chunks'
+        "holds a start" flags."""
+        started = torch.zeros_like(m, dtype=torch.bool)
+        for t in range(chunk):
+            si, fi, ok = s_c[..., t], f_c[..., t], live[:, t]
+            mn = torch.where(fi, si, torch.maximum(m, si))
+            a = torch.where(fi, 0.0, torch.exp(m - mn))
+            b = torch.where(fi, 1.0, torch.exp(si - mn))
+            m = torch.where(ok, mn, m)
+            u = torch.where(ok, u * a + b, u)
+            w = torch.where(ok[:, None], w * a[..., None]
+                            + b[..., None] * v_c[..., t, :], w)
+            started = started | fi
+            if trace is not None:
+                trace.append((m, u, w))
+        return m, u, w, started
+
+    empty = torch.full((r, n_chunks), NEG_INF, device=s.device)
+    agg = walk(empty, torch.zeros_like(empty),
+               torch.zeros((r, n_chunks, d), device=s.device))
+    carry = (m0[:, 0].float(), u0[:, 0].float(), w0.float(),
+             torch.zeros((r,), device=s.device))
+    carries = []
+    for j in range(n_chunks):
+        carries.append(carry[:3])
+        carry = combine_segmented(carry, (agg[0][:, j], agg[1][:, j],
+                                          agg[2][:, j], agg[3][:, j].float()))
+    m, u, w = (torch.stack(x, dim=1) for x in zip(*carries))
+    trace = []
+    m, u, w, _ = walk(m, u, w, trace)
+    m_all, u_all, w_all = (torch.stack(x, dim=2).flatten(1, 2)[:, :n]
+                           for x in zip(*trace))
+    o = w_all / torch.where(u_all == 0.0, 1.0, u_all)[..., None]
+    return (o, m[:, -1:], u[:, -1:], w[:, -1], m_all, u_all)
 
 
 def aaren_scan_vjp_reference(s, v, m0, u0, w0, g_o, g_m, g_u, g_w):
@@ -229,6 +300,35 @@ def flash_attention_tc_oracle(q, k, v, q_lens, kv_lens, *, causal, window,
     o = torch.einsum("bhqk,bhkd->bhqd", e / l_safe, ve)
     lse = (m + torch.log(l_safe))[..., 0]
     return o.to(q.dtype), lse
+
+
+def flash_bwd_dq_tc_oracle(q, k, v, do, lse, delta, q_lens, kv_lens, *,
+                           causal, window, scale, q_seg=None, kv_seg=None,
+                           sums=torch.float32):
+    """B4 with the bf16 tensor-core kernel's rounding points: as
+    :func:`~repro_torch.kernels.flash_attention.flash_bwd_dq_plain`, except
+    that for bf16 inputs ``dS`` is rounded to bf16 before ``dq = scale ·
+    dS k``.  ``sums`` is the dtype of every sum and product: f32 (then,
+    on f32 inputs, this is the plain version bit for bit) or f64, which
+    leaves the rounding points alone, so that a kernel's f32 sums are all
+    of its difference.  Returns dq in q's dtype."""
+    h, g = q.shape[1], k.shape[1]
+    if sums == torch.float32:
+        _, ds = fa._p_ds(q, k, v, do, lse, delta, q_lens, kv_lens, causal,
+                         window, scale, q_seg, kv_seg)
+    else:
+        _, mask = fa._scores(q, k, q_lens, kv_lens, causal, window, scale,
+                             q_seg, kv_seg)
+        ke, ve = (torch.repeat_interleave(t, h // g, dim=1).to(sums)
+                  for t in (k, v))
+        s = torch.einsum("bhqd,bhkd->bhqk", q.to(sums), ke) * scale
+        p = torch.where(mask, torch.exp(s - lse.to(sums)[..., None]), 0.0)
+        dp = torch.einsum("bhqd,bhkd->bhqk", do.to(sums), ve)
+        ds = p * (dp - delta.to(sums)[..., None])
+    if q.dtype == torch.bfloat16:
+        ds = ds.to(torch.bfloat16).to(sums)
+    ke = torch.repeat_interleave(k, h // g, dim=1).to(sums)
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, ke) * scale).to(q.dtype)
 
 
 def flash_bwd_dkv_tc_oracle(q, k, v, do, lse, delta, q_lens, kv_lens, *,

@@ -1,10 +1,11 @@
-"""The rounding points of the bf16 tensor-core flash kernels (B3, B5)
+"""The rounding points of the bf16 tensor-core flash kernels (B3, B4, B5)
 against the JAX package.
 
-The bf16 forms of B3 and B5 multiply on the tensor cores: products of two
-bf16 inputs (``q·kᵀ``, ``do·vᵀ``) are exact f32 sums, while ``p`` and
-``dS`` are rounded to bf16 before ``p·v``, ``pᵀ·do`` and ``dSᵀ·q``.  The
-oracles of those rounding points, ``ref.flash_attention_tc_oracle`` and
+The bf16 forms of B3, B4 and B5 multiply on the tensor cores: products of
+two bf16 inputs (``q·kᵀ``, ``do·vᵀ``) are exact f32 sums, while ``p`` and
+``dS`` are rounded to bf16 before ``p·v``, ``dS·k``, ``pᵀ·do`` and
+``dSᵀ·q``.  The oracles of those rounding points,
+``ref.flash_attention_tc_oracle``, ``ref.flash_bwd_dq_tc_oracle`` and
 ``ref.flash_bwd_dkv_tc_oracle``, run here on bf16 inputs and are held
 against the JAX package's dense oracles ``repro.kernels.ref.flash_reference``
 and ``flash_vjp_reference`` in f32 on the same bf16-representable values,
@@ -12,7 +13,7 @@ at the port's bf16 bars (tests/test_torch_flash.py): forward
 ``rtol = atol = 2e-2``, gradients ``|port - ref| <= 2e-2 · max|ref| +
 1e-6``.  So rounding ``p`` and ``dS`` keeps the kernels' function within
 the bars the f32 reference holds.  On f32 inputs the oracles round nothing
-and equal the plain versions of B3 and B5 bit for bit.
+and equal the plain versions of B3, B4 and B5 bit for bit.
 """
 
 import math
@@ -124,6 +125,50 @@ def test_tc_oracles_equal_plain_versions_on_f32(i):
     for got, want in zip(ref.flash_bwd_dkv_tc_oracle(*args, **kw),
                          fa.flash_bwd_dkv_plain(*args, **kw)):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("i", range(len(CASES)),
+                         ids=[c[0] for c in CASES])
+def test_dq_tc_oracle_within_bf16_bar_of_jax(i):
+    """B4's oracle (dS rounded to bf16 before dS·k) on bf16 inputs against
+    the JAX f32 dq, with lse and delta from the forward oracle."""
+    case = CASES[i]
+    _, _, causal, window, _, _ = case
+    (q, k, v, do), lens_np, ids_np = _inputs(case, seed=80 + i)
+    lens, kw = _port_kw(case, lens_np, ids_np)
+
+    o, lse = ref.flash_attention_tc_oracle(q, k, v, lens, lens, **kw)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq = ref.flash_bwd_dq_tc_oracle(q, k, v, do, lse, delta, lens, lens, **kw)
+    assert dq.dtype == torch.bfloat16
+
+    f32 = [np.asarray(t.float()) for t in (q, k, v, do)]
+    want, _, _ = jax_flash_vjp_reference(
+        *f32, causal=causal, window=window, q_lens=lens_np, kv_lens=lens_np,
+        q_segment_ids=ids_np, kv_segment_ids=ids_np)
+    want = np.asarray(want)
+    err = np.abs(dq.float().numpy() - want).max()
+    bar = 2e-2 * np.abs(want).max() + 1e-6
+    assert err <= bar, f"dq: max |oracle - JAX| {err:.3e} > {bar:.3e}"
+    dead = np.arange(q.shape[2])[None, :] >= lens.numpy()[:, None]
+    if ids_np is not None:
+        dead |= ids_np == 0
+    assert not dq.float().numpy()[np.broadcast_to(dead[:, None],
+                                                  dq.shape[:3])].any()
+
+
+@pytest.mark.parametrize("i", range(len(CASES)),
+                         ids=[c[0] for c in CASES])
+def test_dq_tc_oracle_equals_plain_version_on_f32(i):
+    case = CASES[i]
+    (q, k, v, do), lens_np, ids_np = _inputs(case, seed=100 + i)
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    lens, kw = _port_kw(case, lens_np, ids_np)
+    o, lse = fa.flash_attention_plain(q, k, v, lens, lens, **kw)
+    delta = (do * o).sum(dim=-1)
+    args = (q, k, v, do, lse, delta, lens, lens)
+    assert torch.equal(ref.flash_bwd_dq_tc_oracle(*args, **kw),
+                       fa.flash_bwd_dq_plain(*args, **kw))
 
 
 def test_tc_oracle_rounds_p_against_the_running_max():
