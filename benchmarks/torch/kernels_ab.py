@@ -10,9 +10,9 @@ serving tick and the training shape, the flash kernels at the training
 shape, bf16 and f32, without and with segment ids (packed documents).
 
 Outputs: every call must give bit-identical outputs on both sides, except
-the calls of the kernels in ``CHANGED`` (the ones tree B redesigned: B1,
-a chunked parallel scan, in every form; B4 in bf16, moved to the tensor
-cores).  For those it prints max |A - B|, whether ``m`` (B1's maxima) is
+the calls of the kernels in ``CHANGED`` (the ones tree B redesigned: B2,
+a chunked parallel suffix scan, plain and segmented).  For those it prints
+max |A - B|, whether the maxima (B1's ``m``, B2's ``n1``) are
 bit-identical, and each side's max |error| against the plain version
 computed in f32 on the same inputs.  The backward kernels of both sides
 read the same residuals (from the plain forwards: B2 the plain scan's
@@ -44,7 +44,7 @@ FLASH_SHAPE = (4, 32, 1024, 96)
 # Kernels whose outputs tree B changed, with the dtype of the changed calls
 # (None: every call): compared by error against the plain version, not by
 # bits.
-CHANGED = {"B1": None, "B4": "bf16"}
+CHANGED = {"B2": None}
 
 SIDE = r'''
 import math, statistics, sys
@@ -52,7 +52,8 @@ import numpy as np, torch
 from repro_torch.core.scan_attention import NEG_INF
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.aaren_scan import aaren_scan, aaren_scan_plain
-from repro_torch.kernels.aaren_scan_bwd import aaren_scan_bwd
+from repro_torch.kernels.aaren_scan_bwd import (aaren_scan_bwd,
+                                                aaren_scan_bwd_plain)
 
 def graph_ms(fn, n_iter):
     side = torch.cuda.Stream()
@@ -99,7 +100,16 @@ for label, r, n, d, residuals in SHAPES:
         args = (s, v, o, m_all, u_all, g, -m_f, torch.ones_like(w_f),
                 -torch.ones_like(u_f))
         out[label + " B2"] = as_list(aaren_scan_bwd(*args))
+        out["plain " + label + " B2"] = as_list(aaren_scan_bwd_plain(*args))
         times["B2"] = graph_ms(lambda: aaren_scan_bwd(*args), 20)
+        # Packed rows: documents end at ~1 % of the tokens.
+        ends = torch.from_numpy(rng.random((r, n)) < 0.01).cuda()
+        out[label + " segmented B2"] = as_list(
+            aaren_scan_bwd(*args, segment_ends=ends))
+        out["plain " + label + " segmented B2"] = as_list(
+            aaren_scan_bwd_plain(*args, segment_ends=ends))
+        times["segmented B2"] = graph_ms(
+            lambda: aaren_scan_bwd(*args, segment_ends=ends), 20)
     for k, ms in times.items():
         print(f"TIME {label} {k} {ms * 1e3:.2f}")
 
@@ -208,13 +218,13 @@ def main(argv=None) -> int:
             err = {side: max((x.float() - y.float()).abs().max().item()
                              for x, y in zip(outs[side][key], plain))
                    for side in "AB"}
-            maxima = ""
-            if kernel == "B1":  # m_f and, with residuals, m_all
-                same = all(torch.equal(pa[i], pb[i])
-                           for i in range(1, len(pa), 3))
-                maxima = f"; m bit-identical: {same}"
-                if not same:
-                    broken.append(key)
+            # B1: m_f and, with residuals, m_all; B2: n1
+            at = range(1, len(pa), 3) if kernel == "B1" else (2,)
+            same = all(torch.equal(pa[i], pb[i]) for i in at)
+            maxima = (f"; {'m' if kernel == 'B1' else 'n1'} bit-identical: "
+                      f"{same}")
+            if not same:
+                broken.append(key)
             print(f"{key}: max |A - B| {diff:.3e}{maxima}; max |side - plain "
                   f"f32| A {err['A']:.3e}, B {err['B']:.3e}")
             continue

@@ -16,10 +16,13 @@ own error):
    ``nvcc`` per source, all started together; for each instantiation of the
    bf16 tensor-core kernels (B3, B4 and B5, SEG false and true) the HGMMA
    instructions in ``cuobjdump -sass`` of the built library and ``-Xptxas
-   -v``'s registers and spills (a count of 0 fails the run).
+   -v``'s registers and spills (a count of 0 fails the run); B2's
+   registers and spills for each of its instantiations.
 3. Each kernel against its plain PyTorch version on the card: B1 (serving
    form and residual form) and B2 on edge shapes (B1's at its chunk and
-   window boundaries: N = 63, 64, 65, 513, 1025, d = 130), the inputs of a real
+   window boundaries: N = 63, 64, 65, 513, 1025, d = 130; B2's at its own:
+   N = 31, 33, 191, 193, 257 at d = 6, 96, 128, N = 1030 at d = 256; ``n1``
+   bit-equal), the inputs of a real
    serving tick at the first and last layer, a small f32 model served on the
    card (kernels) and on the CPU (plain versions) with identical greedy
    tokens, and the same model's loss, every parameter gradient and three
@@ -28,8 +31,9 @@ own error):
    no flags, single-token segments, every token flagged, a padding tail and
    an all-padding row, N not a multiple of 32, extreme scores, packed rows
    at the training N, flags at chunk edges, a carry whose first flag lies
-   in chunk 2, a padding tail across a window), and all-zero flags against
-   no flags, bit for bit.
+   in chunk 2, a padding tail across a window; for B2 ends at its chunk and
+   window edges, a last end in chunk 0 and a d = 256 long row), and
+   all-zero flags against no flags, bit for bit.
    B3, B4 and B5 on edge shapes (N = 1, odd N, N = 1000, ragged lengths
    with 0 and all-empty rows, window, GQA, d from 32 to 256, f32 and
    bf16; every f32 case with a bf16 twin), bf16 B3, B4 and B5 also against
@@ -114,13 +118,15 @@ HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 F32_OPS_PER_S = 67e12             # the same, f32 outside the tensor cores
 BF16_DENSE_FLOPS = 989e12         # the same, bf16 dense tensor cores
 TOL = dict(rtol=1e-4, atol=1e-4)  # the JAX suite's bar for these kernels
-# Device times (us) of the designs that B1's chunked scan and bf16 B4's
-# tensor-core kernel replaced (B1: one warp walking a row; B4: SIMT f32),
-# measured by this script's phases 4-4f on an NVIDIA H100 80GB HBM3 at a
-# 700.00 W power limit: printed beside the new times.
+# Device times (us) of the designs that the chunked scans of B1 and B2 and
+# bf16 B4's tensor-core kernel replaced (B1, B2: one warp walking a row; B4:
+# SIMT f32), measured by this script's phases 4-4f on an NVIDIA H100 80GB
+# HBM3 at a 700.00 W power limit: printed beside the new times.
 BEFORE_US = {("aaren_scan", "serve"): 13.896,
              ("aaren_scan", "train"): 1487.10,
              ("aaren_scan", "train_packed"): 1510.60,
+             ("aaren_scan_bwd", "train"): 598.39,
+             ("aaren_scan_bwd", "train_packed"): 613.65,
              ("flash_bwd_dq", "train"): 2321.93,
              ("flash_bwd_dq", "train_packed"): 1230.75}
 
@@ -247,6 +253,8 @@ def _compare_bwd(torch, args, label, ends=None) -> float:
     got = aaren_scan_bwd(*args, segment_ends=ends)
     want = aaren_scan_bwd_plain(*args, segment_ends=ends)
     torch.cuda.synchronize()
+    _require(torch.equal(got[2], want[2]),
+             f"{label}: n1 differs from the plain version")
     err = 0.0
     for name, a, b in zip(("ds", "dv", "n1", "g1", "b1"), got, want):
         _require(bool(torch.isfinite(a).all()),
@@ -256,7 +264,8 @@ def _compare_bwd(torch, args, label, ends=None) -> float:
                                    msg=lambda m: f"{label} {name}: {m}")
         err = max(err, (a - b).abs().max().item())
     print(f"  {label} (B2): R={args[0].shape[0]} N={args[0].shape[1]} "
-          f"d={args[1].shape[2]} max|kernel - plain| = {err:.3e}")
+          f"d={args[1].shape[2]} max|kernel - plain| = {err:.3e}, n1 "
+          "bit-equal")
     return err
 
 
@@ -420,6 +429,17 @@ BWD_ONLY_CASES = [
     ("u == 0 residual positions", 9, 70, 96, True, (), 3.0),
     ("extreme scores (+-80), training N", 4, 1024, 96, True, (), 80.0),
     ("widest d, long row", 3, 300, 256, False, (1,), 3.0),
+    # B2's chunks of 32 tokens and windows of 6 chunks at d = 96, 4 at
+    # d = 128, 2 at d = 256 and 8 at d = 6 (csrc/aaren_scan_bwd.cu)
+    ("B2: one chunk short, seed", 3, 31, 96, True, (), 3.0),
+    ("B2: one chunk and a token, seed", 3, 33, 96, True, (2,), 3.0),
+    ("B2: a window less a token, seed", 3, 191, 96, True, (), 3.0),
+    ("B2: a window and a token, seed", 3, 193, 96, True, (0,), 3.0),
+    ("B2: d = 128, two windows and a token", 3, 257, 128, True, (), 3.0),
+    ("B2: d = 256, long row, extreme scores", 2, 1030, 256, True, (1,),
+     80.0),
+    ("B2: d = 6 (unvectorised), a window and a token", 3, 257, 6, True,
+     (), 3.0),
 ]
 
 
@@ -478,6 +498,18 @@ def phase2_tensor_cores(kbuild, logs) -> None:
                      "the SASS")
 
 
+def phase2_scan_bwd_usage(logs) -> None:
+    """``-Xptxas -v``'s registers and spills of each instantiation of B2
+    (KPL = ceil(d / 32) columns a lane)."""
+    usage = _ptxas_usage(logs.get("aaren_scan_bwd", ""))
+    names = sorted(fn for fn in usage if "aaren_scan_bwd_kernel" in fn)
+    if not names:
+        print("  aaren_scan_bwd_kernel: ptxas output not seen")
+    for fn in names:
+        kpl = fn.split("ILi")[1].split("E")[0]
+        print(f"  aaren_scan_bwd_kernel<KPL={kpl}>: {usage[fn]}")
+
+
 def phase3_kernels(torch, np) -> tuple[float, float]:
     """B1 (both forms) and B2 against their plain versions on edge shapes.
     Returns (max |err| of B1, of B2)."""
@@ -512,6 +544,10 @@ SEG_CASES = [
     ("carry, first flag in chunk 2", 4, 300, 96, True, 3.0),
     ("every token flagged across chunks, carry", 3, 130, 96, True, 3.0),
     ("padding tail across a window, carry", 4, 1030, 96, True, 3.0),
+    ("B2 ends at chunk and window edges, seed", 4, 600, 96, True, 3.0),
+    ("B2 last end in chunk 0, seed crosses every chunk", 3, 700, 96, True,
+     3.0),
+    ("B2 d = 256, long row, random ends, seed", 2, 1030, 256, True, 3.0),
 ]
 
 
@@ -534,6 +570,12 @@ def _segmented_inputs(torch, np, label, r, n, d, carry, spread, seed):
         starts[:, [63, 64, 127, 128, 511, 512, 575, 576]] = True
     elif label.startswith("carry, first flag"):
         starts[:, [140, 141, 255, 256]] = True
+    elif label.startswith("B2 ends at chunk"):  # ends at 31, 32, 191, ...
+        starts[:, [32, 33, 192, 193, 384, 385]] = True
+    elif label.startswith("B2 last end"):       # one end, at token 2
+        starts[:, 3] = True
+    elif label.startswith("B2 d = 256"):
+        starts = rng.random((r, n)) < 0.05
     elif label.startswith("padding tail across"):
         starts[:, [100, 300, 511]] = True
         pad[:, 500:] = True
@@ -1901,6 +1943,7 @@ def main() -> int:
                 print(f"    {line.strip()}")
     print(f"build seconds: {time.perf_counter() - tb:.2f}")
     phase2_tensor_cores(kbuild, logs)
+    phase2_scan_bwd_usage(logs)
 
     # 3. Kernels against their plain versions --------------------------------
     _phase("3 kernels against plain versions", t0)

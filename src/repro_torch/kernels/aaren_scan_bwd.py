@@ -18,8 +18,10 @@ stops at every end flag, so the seed reaches only the last segment and
 
 * :func:`aaren_scan_bwd_plain` — the suffix scan in plain torch: the leaves
   reversed, ``prefix_scan``, reversed back, the seed folded in.
-* The kernel — ``csrc/aaren_scan_bwd.cu`` (design and bound in its header),
-  built by ``kernels/build.py`` at first launch.
+* The kernel — ``csrc/aaren_scan_bwd.cu``, a chunked parallel suffix scan
+  (design and bound in its header; ``ref.aaren_scan_bwd_chunked_reference``
+  is its algebra in plain torch), built by ``kernels/build.py`` at first
+  launch.
 * :func:`aaren_scan_bwd` — the wrapper.  A CPU tensor goes to the plain
   version; a CUDA tensor launches the kernel or raises.  Nothing falls back.
   ``aaren_scan_bwd.n_launches`` counts kernel launches.

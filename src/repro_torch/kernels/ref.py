@@ -16,7 +16,9 @@ do.  On f32 inputs they round nothing and equal the plain versions
 exactly.  ``chip_smoke.py`` holds the kernels to them at a tighter bar
 than the f32 plain versions; nothing on a main path calls them.
 :func:`aaren_scan_chunked_reference` is B1's chunked parallel scan in
-plain torch, the algebra of ``csrc/aaren_scan.cu``."""
+plain torch, the algebra of ``csrc/aaren_scan.cu``, and
+:func:`aaren_scan_bwd_chunked_reference` B2's chunked suffix scan, the
+algebra of ``csrc/aaren_scan_bwd.cu``."""
 
 from __future__ import annotations
 
@@ -128,6 +130,90 @@ def aaren_scan_chunked_reference(s, v, m0, u0, w0, segment_starts=None, *,
                            for x in zip(*trace))
     o = w_all / torch.where(u_all == 0.0, 1.0, u_all)[..., None]
     return (o, m[:, -1:], u[:, -1:], w[:, -1], m_all, u_all)
+
+
+def aaren_scan_bwd_chunked_reference(s, v, o, m, u, g, n0, g0, b0,
+                                     segment_ends=None, *, chunk=32):
+    """B2 as ``csrc/aaren_scan_bwd.cu`` computes it: a chunked parallel
+    suffix scan.
+
+    Arguments and returns as ``kernels.aaren_scan_bwd.aaren_scan_bwd``:
+    s, m, u (R, N); v, o, g (R, N, d); the seed n0, b0 (R, 1), g0 (R, d);
+    ``segment_ends`` (R, N) bool or None.  The row is cut into chunks of
+    ``chunk`` tokens (the last one short).  Each chunk's aggregate from the
+    ⊕ identity ``(NEG_INF, 0, 0)`` is taken in closed form: the tokens up to
+    its first end (all of them without one), ``n = max(NEG_INF, -m_j)``,
+    ``w_j = exp(-m_j - n)``, ``Ĝ = Σ (w_j/u_j) g_j``, ``B̂ = Σ w_j
+    (g_j·o_j)/u_j`` (``1/u := 0`` where ``u == 0``), with a "holds an end"
+    flag.  The seed is folded with the aggregates right to left by
+    :func:`~repro_torch.core.scan_attention.combine_segmented` (an aggregate
+    that holds an end replaces the carry), which gives each chunk its
+    exclusive carry; the token recurrence then runs over each chunk from its
+    carry, right to left (``n' = max(n, -m_j)``, ``a = exp(n - n')``, ``b =
+    exp(-m_j - n')``, ``Ĝ = Ĝ a + g_j (b/u_j)``, ``B̂ = B̂ a + b
+    (g_j·o_j)/u_j``; at an end flag ``n' = -m_j, a = 0``), and every token
+    reads ``e = exp(s_j + n)``, ``ds_j = e (v_j·Ĝ - B̂)``, ``dv_j = e Ĝ``.
+    Tokens past N are not stepped.  ``(n1, g1, b1)`` is the state after
+    token 0.
+    """
+    r, n = s.shape
+    d = v.shape[-1]
+    n_chunks = -(-n // chunk)
+    pad = n_chunks * chunk - n
+    zero = u == 0.0
+    inv_u = torch.where(zero, 0.0, 1.0 / torch.where(zero, 1.0, u))
+
+    def cut(x, *tail):
+        x = torch.nn.functional.pad(x.float(), (0, 0) * len(tail) + (0, pad))
+        return x.view(r, n_chunks, chunk, *tail)
+
+    ln_c, iu_c, g_c = cut(-m), cut(inv_u), cut(g, d)
+    lb_c = cut((g * o).sum(dim=-1) * inv_u)
+    flags = (torch.zeros((r, n), dtype=torch.bool, device=s.device)
+             if segment_ends is None else segment_ends.bool())
+    f_c = torch.nn.functional.pad(flags, (0, pad)).view(r, n_chunks, chunk)
+    live = (torch.arange(n_chunks * chunk, device=s.device) < n).view(
+        n_chunks, chunk)
+
+    # The aggregates: tokens with no end before them, under their max.
+    ended_before = (torch.cumsum(f_c.int(), dim=-1) - f_c.int()) > 0
+    inside = live & ~ended_before
+    neg = torch.full((), NEG_INF, device=s.device)
+    agg_n = torch.maximum(torch.where(inside, ln_c, neg).amax(dim=-1), neg)
+    w = torch.where(inside, torch.exp(ln_c - agg_n[..., None]), 0.0)
+    agg_g = ((w * iu_c)[..., None] * g_c).sum(dim=2)
+    agg_b = (w * lb_c).sum(dim=-1)
+    agg_f = f_c.any(dim=-1).float()
+
+    carry = (n0[:, 0].float(), b0[:, 0].float(), g0.float(),
+             torch.zeros((r,), device=s.device))
+    carries = [None] * n_chunks
+    for j in reversed(range(n_chunks)):
+        carries[j] = carry[:3]
+        carry = combine_segmented(carry, (agg_n[:, j], agg_b[:, j],
+                                          agg_g[:, j], agg_f[:, j]))
+    nr, br, gr = (torch.stack(x, dim=1) for x in zip(*carries))
+
+    # The recurrence over every chunk at once, from its last token to its
+    # first.
+    trace = []
+    for t in reversed(range(chunk)):
+        li, fi, ok = ln_c[..., t], f_c[..., t], live[:, t]
+        nn = torch.where(fi, li, torch.maximum(nr, li))
+        a = torch.where(fi, 0.0, torch.exp(nr - nn))
+        bl = torch.exp(li - nn)
+        nr = torch.where(ok, nn, nr)
+        br = torch.where(ok, br * a + lb_c[..., t] * bl, br)
+        gr = torch.where(ok[:, None], gr * a[..., None]
+                         + g_c[..., t, :] * (iu_c[..., t] * bl)[..., None],
+                         gr)
+        trace.append((nr, gr, br))
+    n_all, g_all, b_all = (torch.stack(x[::-1], dim=2).flatten(1, 2)[:, :n]
+                           for x in zip(*trace))
+    e = torch.exp(s + n_all)
+    ds = e * ((v * g_all).sum(dim=-1) - b_all)
+    dv = e[..., None] * g_all
+    return ds, dv, nr[:, :1], gr[:, 0], br[:, :1]
 
 
 def aaren_scan_vjp_reference(s, v, m0, u0, w0, g_o, g_m, g_u, g_w):
