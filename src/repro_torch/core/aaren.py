@@ -7,7 +7,11 @@ with the ⊕ scan of ``repro_torch.core.scan_attention``:
 
 * :func:`aaren_layer_parallel` — all N outputs at once (prefill), through
   the kernel boundary ``kernels/ops.aaren_prefix_attention``;
-* :func:`aaren_layer_step`     — the O(1) streaming update (the RNN cell).
+* :func:`aaren_layer_step`     — the O(1) streaming update (the RNN cell);
+* :func:`aaren_attention_parallel` / :func:`aaren_attention_chunked` — the
+  plain torch prefix attention with and without an incoming carry, the
+  reference the kernel boundary is held to (nothing on the main path
+  calls them).
 
 GQA: ``kv_heads`` divides ``heads``; query head ``h`` reads kv head
 ``h // (H/G)``.
@@ -23,8 +27,12 @@ import torch
 from repro_torch.core.scan_attention import (
     ScanState,
     combine,
+    final_state,
+    fold_carry,
     make_empty_state,
     make_leaf_state,
+    mask_to_identity,
+    prefix_scan_states,
     readout,
 )
 
@@ -78,6 +86,41 @@ def _values_per_head(v: torch.Tensor, n_heads: int) -> torch.Tensor:
     v = v.transpose(1, 2)  # (B, G, N, d)
     v = v[:, :, None].expand(b, g, n_heads // g, n, d)
     return v.reshape(b, n_heads, n, d)
+
+
+def aaren_attention_parallel(q_heads, k, v, scale: float):
+    """All-prefix attention from the empty state in plain torch.
+
+    q_heads: (H, d); k, v: (B, N, G, d).  Returns ((B, N, H, d) in v's
+    dtype, final ScanState with m,u (B, H), w (B, H, d)).
+    """
+    s = _scores(q_heads, k, scale)                                # (B, H, N)
+    vh = _values_per_head(v, q_heads.shape[0]).float()            # (B,H,N,d)
+    states = prefix_scan_states(s, vh)
+    return readout(states).transpose(1, 2).to(v.dtype), final_state(states)
+
+
+def aaren_attention_chunked(q_heads, k, v, carry: ScanState, scale: float,
+                            mask: torch.Tensor | None = None):
+    """Prefix attention over one chunk, folding in an incoming carry.
+
+    ``mask`` (B, N) bool marks the valid chunk positions; the rest enter
+    the scan as ⊕-identity leaves, so a fixed-shape chunk can hold a ragged
+    tail.  Returns ((B, N, H, d), final ScanState).
+    """
+    s = _scores(q_heads, k, scale)
+    vh = _values_per_head(v, q_heads.shape[0]).float()
+    if mask is not None:
+        s, vh = mask_to_identity(s, vh, mask[:, None, :])  # (B,N) -> heads
+    out, final = _chunk_with_carry(s, vh, carry)
+    return out.transpose(1, 2).to(v.dtype), final
+
+
+def _chunk_with_carry(s, vh, carry: ScanState):
+    """Scores (B, H, N) and values (B, H, N, d) scanned after ``carry``:
+    (readout (B, H, N, d), final state)."""
+    states = fold_carry(carry, prefix_scan_states(s, vh))
+    return readout(states), final_state(states)
 
 
 def _project_out(w: AarenWeights, ctx: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,13 @@ softmax numerator — and two summaries merge with the associative operator
 ``NEG_INF`` sentinel, an empty state that reads out 0), so every ported
 piece can be held against the JAX package.
 
+Every evaluation strategy the paper discusses is here in plain torch, for
+any device: :func:`attention_many_to_one` (Fig. 1a),
+:func:`attention_recurrent` through the RNN cell :func:`scan_state_step`
+(§3.1), :func:`attention_many_to_many` through the prefix scan (§3.2) and
+:func:`attention_blockwise` (App. A), with
+:func:`causal_attention_reference` for the Transformer's view (Fig. 1b).
+
 Layout: scores ``(..., N)``, values ``(..., N, d)``; a state has ``m, u``
 of shape ``(...,)`` and ``w`` of shape ``(..., d)``.
 """
@@ -202,3 +209,147 @@ def prefix_scan_states_segmented(s: torch.Tensor, v: torch.Tensor,
     the first reset)."""
     return prefix_scan_segmented(make_leaf_state(s.float(), v.float()),
                                  segment_starts)
+
+
+# ---------------------------------------------------------------------------
+# The paper's evaluation strategies (§3.1–3.2, App. A) — plain torch on any
+# device.  They are the reference formulations the prefix-scan kernels are
+# held to; the models route every Aaren layer through
+# ``kernels/ops.aaren_prefix_attention`` instead.
+# ---------------------------------------------------------------------------
+
+
+def scores(q: torch.Tensor, k: torch.Tensor,
+           scale: float | None = None) -> torch.Tensor:
+    """``s_i = q . k_i``, scaled by ``1/sqrt(d)`` unless ``scale`` is given,
+    in f32.
+
+    q: (..., d), or (..., N, d) matching k's token dim; k: (..., N, d).
+    Returns (..., N).
+    """
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(k.shape[-1]))
+    q, k = q.float(), k.float()
+    if q.ndim == k.ndim:  # per-position queries (baselines and tests)
+        s = (q * k).sum(dim=-1)
+    else:  # one query vector against every position: the Aaren case
+        s = (k @ q[..., None])[..., 0]
+    return s * scale
+
+
+def final_state(states: ScanState) -> ScanState:
+    """The last position's state of all-prefix states."""
+    return ScanState(m=states.m[..., -1], u=states.u[..., -1],
+                     w=states.w[..., -1, :])
+
+
+def fold_carry(carry: ScanState, states: ScanState) -> ScanState:
+    """``carry ⊕ state_k`` at every position k of all-prefix states: the
+    prefix property that lets a scan continue from an earlier one."""
+    lifted = ScanState(m=carry.m[..., None].expand(states.m.shape),
+                       u=carry.u[..., None].expand(states.u.shape),
+                       w=carry.w[..., None, :].expand(states.w.shape))
+    return combine(lifted, states)
+
+
+def attention_many_to_one(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float | None = None) -> torch.Tensor:
+    """softmax(q K^T) V for one query vector: fully parallel, O(N) memory
+    (Fig. 1a).  q: (..., d), k/v: (..., N, d) -> (..., d)."""
+    p = torch.softmax(scores(q, k, scale), dim=-1)
+    return (p[..., None, :] @ v.to(p.dtype))[..., 0, :].to(v.dtype)
+
+
+def scan_state_step(state: ScanState, s_t: torch.Tensor,
+                    v_t: torch.Tensor) -> ScanState:
+    """One RNN-cell update with a new token's score and value (Fig. 2):
+    the constant-memory inference path of §3.3.  ``s_t`` (...,), ``v_t``
+    (..., d)."""
+    return combine(state, make_leaf_state(s_t, v_t))
+
+
+def attention_recurrent(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float | None = None) -> torch.Tensor:
+    """Token-by-token evaluation through the RNN cell, O(1) memory.
+
+    Slow by construction (N sequential steps): the semantic anchor the
+    scan and blockwise forms are tested against.  (..., d) out.
+    """
+    s = scores(q, k, scale)
+    state = make_empty_state(tuple(s.shape[:-1]), v.shape[-1],
+                             device=s.device)
+    vf = v.float()
+    for t in range(s.shape[-1]):
+        state = scan_state_step(state, s[..., t], vf[..., t, :])
+    return readout(state).to(v.dtype)
+
+
+def attention_many_to_many(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           scale: float | None = None) -> torch.Tensor:
+    """``{o_k = Attention(q, x_{1:k})}_{k=1..N}`` in parallel through the
+    prefix scan (§3.2).  q: (..., d), k/v: (..., N, d) -> (..., N, d)."""
+    states = prefix_scan_states(scores(q, k, scale), v)
+    return readout(states).to(v.dtype)
+
+
+def attention_many_to_many_with_state(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        carry: ScanState | None = None, scale: float | None = None,
+        mask: torch.Tensor | None = None):
+    """Prefix-scan attention that continues from an incoming carry.
+
+    Chunked prefill at the framework level (App. A): each block of a long
+    prompt folds the previous blocks' state.  ``mask`` (..., N) bool marks
+    the valid positions; the rest enter as ⊕-identity leaves, so a
+    fixed-shape chunk can hold a shorter effective length.  Returns
+    (outputs (..., N, d), final ScanState).
+    """
+    s = scores(q, k, scale)
+    if mask is not None:
+        s, v = mask_to_identity(s, v, mask)
+    states = prefix_scan_states(s, v)
+    if carry is not None:
+        states = fold_carry(carry, states)
+    return readout(states).to(v.dtype), final_state(states)
+
+
+def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        block_size: int,
+                        scale: float | None = None) -> torch.Tensor:
+    """All-prefix outputs block by block with an O(b) working set (App. A).
+
+    The same function as :func:`attention_many_to_many`: the sequence goes
+    in blocks of ``block_size`` tokens, each scanned on its own and folded
+    into the carry of the blocks before it.  ``N`` must be a multiple of
+    ``block_size``.
+    """
+    n = k.shape[-2]
+    if n % block_size:
+        raise ValueError(f"N={n} not divisible by block_size={block_size}")
+    s = scores(q, k, scale)
+    vf = v.float()
+    carry = make_empty_state(tuple(s.shape[:-1]), v.shape[-1],
+                             device=s.device)
+    outs = []
+    for lo in range(0, n, block_size):
+        states = fold_carry(carry, prefix_scan_states(
+            s[..., lo:lo + block_size], vf[..., lo:lo + block_size, :]))
+        carry = final_state(states)
+        outs.append(readout(states))
+    return torch.cat(outs, dim=-2).to(v.dtype)
+
+
+def causal_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor,
+                               scale: float | None = None) -> torch.Tensor:
+    """Row-wise causal softmax attention ``o_k = Attention(q_k, x_{1:k})``:
+    a Transformer's causal attention through the RNN view (Fig. 1b).
+    q/k/v: (..., N, d) -> (..., N, d); O(N²)."""
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(k.shape[-1]))
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    n = s.shape[-1]
+    keep = torch.ones((n, n), dtype=torch.bool, device=s.device).tril()
+    s = torch.where(keep, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return (p @ v.to(p.dtype)).to(v.dtype)

@@ -18,6 +18,7 @@ import math
 import torch
 
 from repro_torch.core.scan_attention import NEG_INF
+from repro_torch.device import resolve_device
 
 
 def _expand_kv(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -82,6 +83,18 @@ def attention_mask(n_q: int, n_k: int, *, causal: bool = True,
     return mask
 
 
+def causal_mask_bias(n_q: int, n_k: int, *, window: int | None = None,
+                     q_offset: int = 0, device=None) -> torch.Tensor:
+    """(n_q, n_k) f32 additive bias: 0 where attendable, NEG_INF elsewhere.
+
+    ``q_offset`` is the absolute position of query row 0 (with caches);
+    ``window`` keeps the last ``window`` positions, self included.
+    """
+    ok = attention_mask(n_q, n_k, window=window, q_offset=q_offset,
+                        device=device)[0, 0]
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
 def multihead_attention(q, k, v, *, causal: bool = True,
                         window: int | None = None, q_offset: int = 0,
                         lengths: torch.Tensor | None = None,
@@ -121,8 +134,10 @@ def multihead_attention(q, k, v, *, causal: bool = True,
 
 
 def init_kv_cache(batch: int, max_len: int, kv_heads: int, head_dim: int,
-                  dtype=torch.bfloat16, device="cpu") -> dict:
-    """Pre-allocated cache: {k, v: (B, S, G, d), index: () int32}."""
+                  dtype=torch.bfloat16, device="cuda") -> dict:
+    """Pre-allocated cache: {k, v: (B, S, G, d), index: () int32}, on the
+    card unless ``device`` says otherwise."""
+    device = resolve_device(device)
     return {
         "k": torch.zeros((batch, max_len, kv_heads, head_dim), dtype=dtype,
                          device=device),

@@ -30,6 +30,12 @@ def _to_torch(a, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
+def tree_to_torch(np_tree, device):
+    """A tree of numpy arrays (dicts, lists, tuples) -> the same tree of
+    tensors on ``device`` (tuples come back as lists)."""
+    return tree_map(lambda a: _to_torch(a, device), np_tree)
+
+
 def params_from_jax(np_tree: dict, cfg: ArchConfig, device) -> dict:
     """JAX ``lm_specs`` layout (numpy leaves) -> the port's parameter tree.
 
@@ -40,20 +46,18 @@ def params_from_jax(np_tree: dict, cfg: ArchConfig, device) -> dict:
     period = len(cfg.pattern)
     layers = []
 
-    def to_torch(a):
-        return _to_torch(a, device)
-
     for i in range(n_periods):
         for pos in range(period):
-            layers.append(tree_map(lambda a, i=i: to_torch(np.asarray(a)[i]),
-                                   np_tree["periods"][pos]))
+            layers.append(tree_to_torch(
+                tree_map(lambda a, i=i: np.asarray(a)[i],
+                         np_tree["periods"][pos]), device))
     for r in range(n_rest):
-        layers.append(tree_map(to_torch, np_tree["rest"][r]))
-    out = {"embed": tree_map(to_torch, np_tree["embed"]),
-           "final_norm": tree_map(to_torch, np_tree["final_norm"]),
+        layers.append(tree_to_torch(np_tree["rest"][r], device))
+    out = {"embed": tree_to_torch(np_tree["embed"], device),
+           "final_norm": tree_to_torch(np_tree["final_norm"], device),
            "layers": layers}
     if "unembed" in np_tree:
-        out["unembed"] = tree_map(to_torch, np_tree["unembed"])
+        out["unembed"] = tree_to_torch(np_tree["unembed"], device)
     return out
 
 

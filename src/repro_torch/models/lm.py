@@ -24,6 +24,8 @@ Entry points, as in the JAX package:
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -59,6 +61,15 @@ def lm_specs(cfg: ArchConfig) -> dict:
     return specs
 
 
+def _group_size(n_periods: int) -> int:
+    """Largest divisor of n_periods <= sqrt(n_periods) x ~1.3 (sqrt-remat)."""
+    best = 1
+    for g in range(2, int(math.sqrt(n_periods) * 1.3) + 1):
+        if n_periods % g == 0:
+            best = g
+    return best
+
+
 def _logits(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return apply_unembed(params.get("unembed"), params["embed"], x,
@@ -85,16 +96,24 @@ def lm_apply(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     cache when ``collect_state`` (default N); without ``collect_state`` no
     cache is built.
 
-    ``cfg.remat == "block"`` checkpoints every layer of the full periods
-    (``torch.utils.checkpoint``, non-reentrant), as the JAX package wraps
-    each scanned period in ``jax.checkpoint``: the backward keeps only each
-    block's input and runs the block's forward again.
+    Remat (``torch.utils.checkpoint``, non-reentrant) covers the layers of
+    the full periods, as the JAX package's ``jax.checkpoint`` covers the
+    scanned periods.  ``cfg.remat == "block"`` checkpoints every layer: the
+    backward keeps only each block's input and runs the block's forward
+    again.  ``"group"`` is the sqrt-L two-level remat: with more than 3
+    periods (and ``scan_layers``), each group of ``_group_size(n_periods)``
+    consecutive periods is one checkpoint, so the backward keeps only the
+    groups' inputs and holds one group's activations at a time; otherwise
+    it checkpoints every layer, as ``"block"`` does.
     """
-    if cfg.remat not in ("none", "block"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r}: the port checkpoints 'none' or 'block'")
+    if cfg.remat not in ("none", "block", "group"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
     n_periods, _ = cfg.layer_plan()
-    n_remat = n_periods * len(cfg.pattern) if cfg.remat == "block" else 0
+    period = len(cfg.pattern)
+    use_group = cfg.remat == "group" and cfg.scan_layers and n_periods > 3
+    # Layers [0, n_remat) are checkpointed in spans of `span` layers.
+    n_remat = n_periods * period if cfg.remat != "none" else 0
+    span = _group_size(n_periods) * period if use_group else 1
     x = apply_embed(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
     if not collect_state:
         cache_len = None
@@ -102,14 +121,25 @@ def lm_apply(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         cache_len = tokens.shape[1]
     kw = dict(cache_len=cache_len, segment_ids=segment_ids,
               positions=positions, lengths=lengths)
-    states = []
-    for i, (p, sig) in enumerate(zip(params["layers"], layer_sigs(cfg))):
-        if i < n_remat and torch.is_grad_enabled():
-            x, st = checkpoint(blocks.block_sequence, p, x, sig, cfg, **kw,
-                               use_reentrant=False)
-        else:
+    layers = list(zip(params["layers"], layer_sigs(cfg)))
+
+    def run(x, lo, hi):
+        sts = []
+        for p, sig in layers[lo:hi]:
             x, st = blocks.block_sequence(p, x, sig, cfg, **kw)
-        states.append(st)
+            sts.append(st)
+        return x, sts
+
+    states = []
+    lo = 0
+    while lo < len(layers):
+        hi = lo + span if lo < n_remat else len(layers)
+        if lo < n_remat and torch.is_grad_enabled():
+            x, sts = checkpoint(run, x, lo, hi, use_reentrant=False)
+        else:
+            x, sts = run(x, lo, hi)
+        states += sts
+        lo = hi
     return _logits(cfg, params, x), (states if collect_state else None)
 
 

@@ -213,17 +213,48 @@ def _imports(path: Path) -> set[str]:
     return names
 
 
+def _forbidden_imports(path: Path) -> list[str]:
+    """The imports of ``path`` the port may not make: jax, jaxlib, the JAX
+    package ``repro``, and the JAX package's benchmarks and examples (any
+    ``benchmarks.*`` outside ``benchmarks.torch``, any ``examples.*``
+    outside ``examples.torch``)."""
+    bad = []
+    for name in sorted(_imports(path)):
+        parts = name.split(".")
+        if parts[0] in ("jax", "jaxlib", "repro") or (
+                parts[0] in ("benchmarks", "examples")
+                and parts[1:2] != ["torch"]):
+            bad.append(name)
+    return bad
+
+
 def test_port_imports_neither_jax_nor_repro():
-    """src/repro_torch/, benchmarks/torch/ and chip_smoke.py import no jax
-    and nothing of the JAX package ``repro``."""
+    """src/repro_torch/, benchmarks/torch/, examples/torch/ and
+    chip_smoke.py import no jax, nothing of the JAX package ``repro``, and
+    none of its benchmarks or examples."""
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files += sorted((REPO / "benchmarks" / "torch").rglob("*.py"))
+    for folder in ("benchmarks", "examples"):
+        found = sorted((REPO / folder / "torch").rglob("*.py"))
+        assert len(found) >= 4, folder
+        files += found
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 10
     bad = {}
     for f in files:
-        roots = {name.split(".")[0] for name in _imports(f)}
-        hit = roots & {"jax", "jaxlib", "repro"}
+        hit = _forbidden_imports(f)
         if hit:
-            bad[str(f.relative_to(REPO))] = sorted(hit)
+            bad[str(f.relative_to(REPO))] = hit
     assert not bad, bad
+
+
+def test_import_scan_flags_jax_benchmarks_and_examples(tmp_path):
+    """The scan flags the JAX scaffold (``benchmarks.common`` imports jax)
+    and the JAX examples, and lets the port's own twins through."""
+    src = tmp_path / "mod.py"
+    src.write_text("import benchmarks.common\n"
+                   "from examples import quickstart\n"
+                   "from benchmarks.torch.common import emit\n"
+                   "import examples.torch.quickstart\n"
+                   "from repro.core import aaren\n"
+                   "import numpy, torch\n")
+    assert _forbidden_imports(src) == ["benchmarks.common", "examples",
+                                       "repro.core"]

@@ -149,7 +149,8 @@ def test_kv_cache_decode_attention_matches_jax(window):
     q = rng.standard_normal((2, 1, 4, 8)).astype(np.float32)
     for dtype in ("float32", "bfloat16"):
         jc = jsoft.init_kv_cache(2, 10, 2, 8, dtype=getattr(jnp, dtype))
-        tc = soft.init_kv_cache(2, 10, 2, 8, dtype=getattr(torch, dtype))
+        tc = soft.init_kv_cache(2, 10, 2, 8, dtype=getattr(torch, dtype),
+                                device="cpu")
         jc = jsoft.update_kv_cache(jc, jnp.asarray(k[:, :5]),
                                    jnp.asarray(v[:, :5]))
         tc = soft.update_kv_cache(tc, torch.from_numpy(k[:, :5]),
