@@ -12,12 +12,14 @@ Everything runs on ``device`` (the card unless the caller asks for the
 CPU): the Aaren backbone through the prefix-scan kernels B1 and B2, the
 softmax one through the flash kernels B3, B4 and B5, in f32 at head dim 16.
 
-``write_bench`` (a ``BENCH_<name>.json`` stamped with run metadata) waits
-for the port's ``obs/events.run_metadata`` (ROADMAP queue A item 8).
+``write_bench`` writes a ``BENCH_<name>.json`` stamped with the port's
+``obs/events.run_metadata``, for the port's benchmark (ROADMAP queue A
+item 12); no proxy calls it, as no JAX proxy does.
 """
 
 from __future__ import annotations
 
+import json
 import time
 
 import torch
@@ -28,6 +30,7 @@ from repro_torch.models import blocks
 from repro_torch.models.convert import tree_to_torch
 from repro_torch.models.layers import apply_norm, norm_specs
 from repro_torch.models.param import ParamSpec, init_params
+from repro_torch.obs.events import run_metadata
 from repro_torch.train.optim import adamw, warmup_cosine
 from repro_torch.train.state import init_train_state, make_train_step
 
@@ -39,6 +42,23 @@ def emit(name: str, us_per_call: float, derived):
     row = (name, f"{us_per_call:.1f}", str(derived))
     ROWS.append(row)
     print(",".join(row), flush=True)
+
+
+def write_bench(name: str, payload: dict) -> str:
+    """Write ``BENCH_<name>.json`` stamped with run provenance.
+
+    Every benchmark artifact goes through here so each one carries the same
+    ``meta`` block (:func:`repro_torch.obs.events.run_metadata` — git sha,
+    torch and card info, UTC timestamp) and a ``schema_version``.  Payload
+    keys stay at the top level.  Returns the path written.
+    """
+    path = f"BENCH_{name}.json"
+    doc = {**payload, "schema_version": 1, "meta": run_metadata()}
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(doc, f, indent=2, sort_keys=True)
+        f.write("\n")
+    print(f"wrote {path}", flush=True)
+    return path
 
 
 def bench_cfg(attn_mode: str, *, d_model=64, n_layers=2, n_heads=4,

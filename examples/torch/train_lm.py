@@ -10,9 +10,11 @@ bin-packed into fixed rows (segment ids + per-document positions); the
 attention stack keeps documents independent and the logs gain a
 ``token_util`` column (real tokens per row slot).
 
-Not in the port yet, and refused when asked for: checkpointing and resume
-(ROADMAP queue A item 8) and the mesh flags ``--context-parallel``,
-``--model-parallel`` and ``--fsdp`` (item 11).
+Not in the port yet, and refused when asked for: the mesh flags
+``--context-parallel``, ``--model-parallel`` and ``--fsdp`` (ROADMAP queue
+A item 11).  Like its JAX twin, the example has no checkpoint flag; the
+training launcher (``python -m repro_torch.launch.train``) has
+``--ckpt-dir`` and ``--guard``.
 """
 
 from __future__ import annotations

@@ -18,6 +18,12 @@ forms of both scans.  ``FlashAttention`` does the same for softmax
 attention: its forward saves ``(q, k, v, o, lse)`` and its backward runs
 the dq and dk/dv passes; packed rows carry their segment ids from the
 forward to both backward passes.
+
+Each pass runs inside a trace span named as in the JAX package —
+``aaren_scan_fwd.{mode}``, ``aaren_scan_bwd.{mode}``, ``flash_fwd.{mode}``
+and ``flash_dq_dkv.{mode}`` — with ``mode`` ``cuda`` or ``plain`` by the
+tensor's device (``obs/trace.py``; the shared no-op unless ``REPRO_TRACE``
+is on).
 """
 
 from __future__ import annotations
@@ -38,6 +44,13 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_bwd,
 )
+from repro_torch.obs.trace import span
+
+
+def _mode(x: torch.Tensor) -> str:
+    """The dispatch a wrapper takes for ``x``: the kernel or its plain
+    version."""
+    return "cuda" if x.is_cuda else "plain"
 
 
 def aaren_bwd_epilogue(s, m0, u0, w0, m_f, u_f, w_f, g_m, g_u, g_w,
@@ -96,8 +109,10 @@ class AarenScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, s, v, m0, u0, w0, starts):
-        o, m_f, u_f, w_f, m_all, u_all = aaren_scan(
-            s, v, m0, u0, w0, segment_starts=starts, return_residuals=True)
+        with span(f"aaren_scan_fwd.{_mode(s)}"):
+            o, m_f, u_f, w_f, m_all, u_all = aaren_scan(
+                s, v, m0, u0, w0, segment_starts=starts,
+                return_residuals=True)
         ctx.save_for_backward(s, v, o, m_all, u_all, m_f, u_f, w_f, m0, u0,
                               w0, starts)
         return o, m_f, u_f, w_f
@@ -106,20 +121,21 @@ class AarenScan(torch.autograd.Function):
     def backward(ctx, g_o, g_m, g_u, g_w):
         (s, v, o, m_all, u_all, m_f, u_f, w_f, m0, u0, w0,
          starts) = ctx.saved_tensors
-        g_u = g_u.contiguous()
-        g_w = g_w.contiguous()
-        ends = hit_mask = None
-        if starts is not None:
-            ends = _segment_ends(starts)
-            hit_mask = _in_last_segment(starts)
-        # (u_f, w_f) cotangents seed the reverse carry (a suffix "past" token
-        # N); see kernels/aaren_scan_bwd.py.
-        ds, dv, n1, g1, b1 = aaren_scan_bwd(
-            s, v, o, m_all, u_all, g_o.contiguous(), -m_f, g_w, -g_u,
-            segment_ends=ends)
-        ds, dm0, du0, dw0 = aaren_bwd_epilogue(
-            s, m0, u0, w0, m_f, u_f, w_f, g_m, g_u, g_w, ds, n1, g1, b1,
-            hit_mask=hit_mask)
+        with span(f"aaren_scan_bwd.{_mode(s)}"):
+            g_u = g_u.contiguous()
+            g_w = g_w.contiguous()
+            ends = hit_mask = None
+            if starts is not None:
+                ends = _segment_ends(starts)
+                hit_mask = _in_last_segment(starts)
+            # (u_f, w_f) cotangents seed the reverse carry (a suffix "past"
+            # token N); see kernels/aaren_scan_bwd.py.
+            ds, dv, n1, g1, b1 = aaren_scan_bwd(
+                s, v, o, m_all, u_all, g_o.contiguous(), -m_f, g_w, -g_u,
+                segment_ends=ends)
+            ds, dm0, du0, dw0 = aaren_bwd_epilogue(
+                s, m0, u0, w0, m_f, u_f, w_f, g_m, g_u, g_w, ds, n1, g1, b1,
+                hit_mask=hit_mask)
         return ds, dv, dm0, du0, dw0, None
 
 
@@ -176,7 +192,8 @@ def aaren_prefix_attention(s, v, carry: ScanState | None = None, *,
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         o, m_f, u_f, w_f = AarenScan.apply(*args, starts2)
     else:
-        o, m_f, u_f, w_f = aaren_scan(*args, segment_starts=starts2)
+        with span(f"aaren_scan_fwd.{_mode(s2)}"):
+            o, m_f, u_f, w_f = aaren_scan(*args, segment_starts=starts2)
     if pad_mask is not None:
         o = torch.where(pad_mask.reshape(r, n, 1), o, 0.0)
     final = ScanState(m=m_f.reshape(batch_shape), u=u_f.reshape(batch_shape),
@@ -193,10 +210,11 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, q_lens, kv_lens, q_seg, kv_seg, causal, window,
                 scale):
-        o, lse = flash_attention(q, k, v, causal=causal, window=window,
-                                 scale=scale, q_lens=q_lens, kv_lens=kv_lens,
-                                 q_segment_ids=q_seg, kv_segment_ids=kv_seg,
-                                 return_residuals=True)
+        with span(f"flash_fwd.{_mode(q)}"):
+            o, lse = flash_attention(
+                q, k, v, causal=causal, window=window, scale=scale,
+                q_lens=q_lens, kv_lens=kv_lens, q_segment_ids=q_seg,
+                kv_segment_ids=kv_seg, return_residuals=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.masks = dict(q_lens=q_lens, kv_lens=kv_lens, q_segment_ids=q_seg,
                          kv_segment_ids=kv_seg, causal=causal, window=window,
@@ -206,8 +224,9 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         **ctx.masks)
+        with span(f"flash_dq_dkv.{_mode(q)}"):
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse,
+                                             do.contiguous(), **ctx.masks)
         return dq, dk, dv, None, None, None, None, None, None, None
 
 
@@ -253,8 +272,9 @@ def flash_mha(q, k, v, *, causal: bool = True, window: int | None = None,
         o = FlashAttention.apply(qt, kt, vt, q_lens, kv_lens, q_segment_ids,
                                  kv_segment_ids, causal, window, float(scale))
     else:
-        o = flash_attention(qt, kt, vt, causal=causal, window=window,
-                            scale=scale, q_lens=q_lens, kv_lens=kv_lens,
-                            q_segment_ids=q_segment_ids,
-                            kv_segment_ids=kv_segment_ids)
+        with span(f"flash_fwd.{_mode(qt)}"):
+            o = flash_attention(qt, kt, vt, causal=causal, window=window,
+                                scale=scale, q_lens=q_lens, kv_lens=kv_lens,
+                                q_segment_ids=q_segment_ids,
+                                kv_segment_ids=kv_segment_ids)
     return o.transpose(1, 2)

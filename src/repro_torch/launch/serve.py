@@ -7,17 +7,25 @@ unless ``--device cpu`` is given.  ``--attn-mode softmax`` serves the
 softmax baseline, whose KV-cache decode state only the wave engine takes;
 the wave engine prints the decode state's size.
 
+Observability: ``--events`` writes the JSONL event log, ``--metrics-out``
+dumps the metrics-registry snapshot at exit, and ``--metrics-port`` serves
+live Prometheus text at ``/metrics`` (plus the snapshot document at
+``/metrics.json``) on 127.0.0.1 while the engine runs.
+
 Example::
 
     python -m repro_torch.launch.serve --arch phi3-mini-3.8b \
         --engine streaming --requests 16 --slots 8 --chunk 16 --max-new 32
     python -m repro_torch.launch.serve --arch phi3-mini-3.8b \
         --attn-mode softmax --engine wave --requests 4 --prompt-len 128
+    python -m repro_torch.launch.serve --arch phi3-mini-3.8b --smoke \
+        --events serve_events.jsonl --metrics-out serve_metrics.json
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -25,6 +33,9 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models.factory import build
+from repro_torch.obs.events import EventLog, use_events
+from repro_torch.obs.export import serve_metrics, write_snapshot
+from repro_torch.obs.metrics import MetricsRegistry, use_metrics
 from repro_torch.serving.engine import (
     StreamingEngine,
     decode_state_bytes,
@@ -55,8 +66,44 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--events", default=None,
+                    help="path of the JSONL event log to write "
+                         "(repro_torch.obs.events; off when omitted)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="path of the metrics-snapshot JSON dumped at exit")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve Prometheus text at /metrics on this port "
+                         "while the engine runs (0 = ephemeral port)")
     args = ap.parse_args(argv)
 
+    # Ambient observability for the whole serve run: a registry whenever
+    # any obs output was asked for (the endpoints need one even if only
+    # --metrics-port was given).
+    obs = contextlib.ExitStack()
+    registry = None
+    if (args.events is not None or args.metrics_out is not None
+            or args.metrics_port is not None):
+        registry = obs.enter_context(use_metrics(MetricsRegistry()))
+        if args.events is not None:
+            log = obs.enter_context(use_events(EventLog(args.events)))
+            obs.callback(log.close)
+    http = None
+    if args.metrics_port is not None:
+        http = serve_metrics(registry, args.metrics_port)
+        print(f"metrics: http://{http.server_address[0]}:"
+              f"{http.server_address[1]}/metrics")
+    try:
+        with obs:
+            _run(args)
+            if args.metrics_out is not None:
+                write_snapshot(args.metrics_out, registry)
+                print(f"metrics snapshot: {args.metrics_out}")
+    finally:
+        if http is not None:
+            http.shutdown()
+
+
+def _run(args):
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     api = build(cfg.replace(attn_mode=args.attn_mode))
     t0 = time.perf_counter()

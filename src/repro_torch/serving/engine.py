@@ -15,9 +15,16 @@ parameters, and draw the token-``t`` sample of request ``rid`` from
 :func:`~repro_torch.serving.sampler.request_seed` ``(seed, rid, t)``, so
 streaming and wave generation sample identically.
 
-Not yet ported (later slices): the prefix cache, request export/inject,
-snapshot/restore, deadlines, ``max_queue`` shedding, slot quarantine and
-the observability instruments.
+The streaming engine reports through ``repro_torch.obs`` under the JAX
+package's names: the ``serve_*`` counters, gauges and TTFT/ITL histograms
+into the ambient registry, ``request_submitted``/``first_token``/
+``request_completed`` events into the ambient sink, and the
+``engine.schedule``/``engine.step``/``engine.sample`` spans.  Each is a
+no-op when nothing is installed, and the tokens do not depend on them.
+
+Not yet ported (ROADMAP queue A item 9): the prefix cache, request
+export/inject, snapshot/restore, deadlines, ``max_queue`` shedding, slot
+quarantine, and their instruments.
 """
 
 from __future__ import annotations
@@ -35,6 +42,9 @@ from repro_torch.models.lm import (
     lm_state_init,
     lm_state_select,
 )
+from repro_torch.obs import events as obs_events
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.sampler import greedy_sampler, request_seed
 from repro_torch.tree import tree_leaves
 
@@ -153,6 +163,7 @@ class _Slot:
     remaining: int               # generated tokens still owed
     n_sampled: int = 0           # per-request step counter (seed schedule)
     last_token: int = 0          # input token while decoding
+    last_emit_at: float | None = None   # perf_counter of the last token
 
 
 def _validate_request(prompt, max_new_tokens: int) -> np.ndarray:
@@ -213,6 +224,9 @@ class StreamingEngine:
         self.active: list[_Slot | None] = [None] * n_slots
         self.queue: list[_Slot] = []
         self.finished: dict[int, list[int]] = {}
+        # Latency bookkeeping for TTFT; evicted when a request ends.
+        self.submitted_at: dict[int, float] = {}
+        self.first_token_at: dict[int, float] = {}
         self._next_id = 0
 
     # ------------------------------------------------------------------ API
@@ -223,6 +237,12 @@ class StreamingEngine:
         self._next_id += 1
         self.queue.append(_Slot(request_id=rid, pending=prompt, tokens=[],
                                 remaining=int(max_new_tokens)))
+        self.submitted_at[rid] = time.perf_counter()
+        obs_metrics.inc("serve_requests_total")
+        obs_metrics.set_gauge("serve_queue_depth", len(self.queue))
+        obs_events.emit("request_submitted", rid=rid,
+                        prompt_len=int(prompt.size),
+                        max_new=int(max_new_tokens))
         return rid
 
     @torch.inference_mode()
@@ -248,51 +268,82 @@ class StreamingEngine:
 
         Returns the number of tokens emitted this tick (0 when idle).
         """
-        self._admit()
-        if all(s is None for s in self.active):
-            return 0
-        # Free slots stay all-padding (lengths == 0).
-        tokens = np.zeros((self.n_slots, self.chunk), np.int64)
-        lengths = np.zeros((self.n_slots,), np.int64)
-        for i, slot in enumerate(self.active):
-            if slot is None:
-                continue
-            if slot.pending is not None:      # mid-prefill: feed next chunk
-                take = min(slot.pending.size, self.chunk)
-                tokens[i, :take] = slot.pending[:take]
-                lengths[i] = take
-            else:                             # decoding: feed last sample
-                tokens[i, 0] = slot.last_token
-                lengths[i] = 1
-        last, self.states = self._advance(tokens, lengths)
-
-        ready = []
-        for i, slot in enumerate(self.active):
-            if slot is None:
-                continue
-            if slot.pending is not None:
-                slot.pending = slot.pending[int(lengths[i]):]
-                if slot.pending.size:         # prompt not done — no sample
+        with obs_trace.span("engine.schedule"):
+            self._admit()
+            n_active = sum(s is not None for s in self.active)
+            obs_metrics.set_gauge("serve_queue_depth", len(self.queue))
+            obs_metrics.set_gauge("serve_slot_occupancy",
+                                  n_active / self.n_slots)
+            if n_active == 0:
+                return 0
+            # Free slots stay all-padding (lengths == 0).
+            tokens = np.zeros((self.n_slots, self.chunk), np.int64)
+            lengths = np.zeros((self.n_slots,), np.int64)
+            prefill_toks, decode_toks = 0, 0
+            for i, slot in enumerate(self.active):
+                if slot is None:
                     continue
-                slot.pending = None
-            ready.append(i)
+                if slot.pending is not None:  # mid-prefill: feed next chunk
+                    take = min(slot.pending.size, self.chunk)
+                    tokens[i, :take] = slot.pending[:take]
+                    lengths[i] = take
+                    prefill_toks += take
+                else:                         # decoding: feed last sample
+                    tokens[i, 0] = slot.last_token
+                    lengths[i] = 1
+                    decode_toks += 1
+            if prefill_toks:
+                obs_metrics.inc("serve_prefill_tokens_total", prefill_toks)
+            if decode_toks:
+                obs_metrics.inc("serve_decode_tokens_total", decode_toks)
+
+        with obs_trace.span("engine.step"):
+            last, self.states = self._advance(tokens, lengths)
+
         emitted = 0
         completed = np.zeros((self.n_slots,), bool)
-        if ready:
-            rows = [self.active[i] for i in ready]
-            toks = _sample(self.sampler, last[ready], self.seed,
-                           [s.request_id for s in rows],
-                           [s.n_sampled for s in rows])
-            for i, slot, t in zip(ready, rows, toks):
-                slot.last_token = t
-                slot.tokens.append(t)
-                slot.n_sampled += 1
-                slot.remaining -= 1
-                emitted += 1
-                if slot.remaining <= 0:
-                    self.finished[slot.request_id] = slot.tokens
-                    self.active[i] = None
-                    completed[i] = True
+        with obs_trace.span("engine.sample"):
+            ready = []
+            for i, slot in enumerate(self.active):
+                if slot is None:
+                    continue
+                if slot.pending is not None:
+                    slot.pending = slot.pending[int(lengths[i]):]
+                    if slot.pending.size:     # prompt not done — no sample
+                        continue
+                    slot.pending = None
+                ready.append(i)
+            if ready:
+                rows = [self.active[i] for i in ready]
+                toks = _sample(self.sampler, last[ready], self.seed,
+                               [s.request_id for s in rows],
+                               [s.n_sampled for s in rows])
+                now = time.perf_counter()
+                for i, slot, t in zip(ready, rows, toks):
+                    rid = slot.request_id
+                    if not slot.tokens:
+                        self.first_token_at[rid] = now
+                        sub = self.submitted_at.get(rid)
+                        if sub is not None:
+                            obs_metrics.observe("serve_ttft_s", now - sub)
+                            obs_events.emit("first_token", rid=rid,
+                                            ttft_s=now - sub)
+                    elif slot.last_emit_at is not None:
+                        obs_metrics.observe("serve_itl_s",
+                                            now - slot.last_emit_at)
+                    slot.last_emit_at = now
+                    slot.last_token = t
+                    slot.tokens.append(t)
+                    slot.n_sampled += 1
+                    slot.remaining -= 1
+                    emitted += 1
+                    if slot.remaining <= 0:
+                        self.finished[rid] = slot.tokens
+                        self.active[i] = None
+                        completed[i] = True
+                        obs_metrics.inc("serve_requests_completed_total")
+                        self._request_done(rid, "request_completed",
+                                           n_tokens=len(slot.tokens))
         if completed.any():
             self.reset(completed)
         return emitted
@@ -321,6 +372,18 @@ class StreamingEngine:
         last = torch.gather(
             logits, 1, last_idx[:, None, None].expand(-1, 1, logits.shape[-1]))
         return last, new_states
+
+    def _request_done(self, rid: int, kind: str, **data) -> None:
+        """Terminal per-request accounting: emit the event and evict the
+        latency maps, so a long-lived engine does not grow them."""
+        now = time.perf_counter()
+        sub = self.submitted_at.pop(rid, None)
+        ft = self.first_token_at.pop(rid, None)
+        if sub is not None:
+            data["total_s"] = now - sub
+            if ft is not None:
+                data["ttft_s"] = ft - sub
+        obs_events.emit(kind, rid=rid, **data)
 
     def _admit(self):
         """Move queued requests into free slots (free slots already hold

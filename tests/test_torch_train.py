@@ -9,6 +9,8 @@ scaled by max |JAX| at 1e-4 (the JAX suite's gradient bar) unless a test
 says otherwise.
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +25,7 @@ from repro.models.factory import build as jax_build
 from repro.train import optim as joptim
 from repro.train.state import init_train_state as jax_init_train_state
 from repro.train.state import make_train_step as jax_make_train_step
+from repro_torch.checkpoint import latest_step
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.data.synthetic import SyntheticLMIterator
 from repro_torch.distributed import grad as tgrad
@@ -30,8 +33,10 @@ from repro_torch.kernels import ops
 from repro_torch.launch import train as train_cli
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.factory import build
+from repro_torch.obs.events import read_events, validate_events
 from repro_torch.train import loop as loop_module
 from repro_torch.train import optim as toptim
+from repro_torch.train.guard import GuardConfig
 from repro_torch.train.loop import LoopConfig, run_train_loop
 from repro_torch.train.state import init_train_state, make_train_step
 from repro_torch.tree import tree_leaves
@@ -408,23 +413,51 @@ def test_loop_detects_a_straggler(monkeypatch):
     assert [s for s, _ in res.history] == [0, 5, 10, 15]
 
 
+HARNESS_KNOBS = ("ckpt_dir", "events", "metrics_out", "guard")
+
+
 @pytest.mark.parametrize("knob", [
     dict(ckpt_dir="x"), dict(events="x"), dict(metrics_out="x"),
     dict(guard=True), dict(pack_sequences=True), dict(context_parallel=2),
     dict(model_parallel=2), dict(fsdp=2)], ids=lambda k: next(iter(k)))
-def test_loop_refuses_knobs_of_later_slices(knob):
-    """Knobs of later slices raise naming their item; ``pack_sequences``
-    is ported and refuses only a batch without ``segment_ids``."""
+def test_loop_refuses_knobs_of_later_slices(knob, tmp_path):
+    """The mesh knobs raise naming item 11; ``pack_sequences`` refuses only
+    a batch without ``segment_ids``; the training harness's knobs
+    (``ckpt_dir``, ``events``, ``metrics_out``, ``guard``) run and leave
+    their checkpoint, event log, snapshot or guard metrics behind."""
     cfg = smoke_config("phi3-mini-3.8b", n_layers=1)
+    api = build(cfg)
     opt = toptim.make_optimizer("adamw", toptim.warmup_cosine(1e-3, 1, 4))
-    state = init_train_state(build(cfg).init(0, device="cpu"), opt)
+    name = next(iter(knob))
+    if name in HARNESS_KNOBS:
+        guard = GuardConfig() if name == "guard" else None
+        state = init_train_state(api.init(0, device="cpu"), opt, guard=guard)
+        step = make_train_step(api.loss, opt, guard=guard)
+        path = str(tmp_path / name)
+        kw = {name: True if name == "guard" else path}
+        batch = {"tokens": np.zeros((2, 8), np.int32)}
+        res = run_train_loop(step, state, iter([batch]),
+                             LoopConfig(total_steps=1, log_every=1,
+                                        install_signal_handlers=False, **kw))
+        assert res.state.step == 1
+        if name == "ckpt_dir":
+            assert latest_step(path) == 1
+        elif name == "events":
+            validate_events(read_events(path))
+        elif name == "metrics_out":
+            with open(path) as f:
+                assert json.load(f)["metrics"]["counters"][
+                    "train_tokens_total"]["value"] == 16
+        else:
+            assert res.history[0][1]["guard_skipped"] == 0.0
+            assert res.final_lr_scale == 1.0
+        return
+    state = init_train_state(api.init(0, device="cpu"), opt)
     exc, match = ((ValueError, "segment_ids") if "pack_sequences" in knob
-                  else (NotImplementedError, "item"))
+                  else (NotImplementedError, "item 11"))
     with pytest.raises(exc, match=match):
         run_train_loop(None, state, iter([{"tokens": np.zeros((1, 4))}]),
                        LoopConfig(total_steps=1, **knob))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_train_step(None, opt, guard=object())
 
 
 def test_train_launcher_runs_on_cpu(capsys):
@@ -438,13 +471,31 @@ def test_train_launcher_runs_on_cpu(capsys):
 @pytest.mark.parametrize("argv, match", [
     ([], "no CUDA device"),
     (["--attn-mode", "softmax"], "no CUDA device"),
-    (["--ckpt-dir", "ckpt"], "item 8"),
+    (["--device", "cpu", "--batch", "2", "--seq-len", "16", "--ckpt-dir",
+      "ckpt", "--guard", "--events", "ev.jsonl", "--metrics-out", "m.json"],
+     None),
     (["--context-parallel", "2"], "item 11"),
 ], ids=["no_card", "softmax", "ckpt", "context_parallel"])
-def test_train_launcher_refuses(argv, match, monkeypatch):
+def test_train_launcher_refuses(argv, match, monkeypatch, tmp_path, capsys):
     """Without --device cpu the launcher needs a card, in either attention
-    mode; flags of later slices raise with their ROADMAP item."""
+    mode; the mesh flags raise with their ROADMAP item; the harness flags
+    (``ckpt``) run on the CPU and leave a checkpoint, an event log and a
+    metrics snapshot, with the JAX launcher's log lines."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    argv = ["--arch", "phi3-mini-3.8b", "--smoke", "--steps", "1", *argv]
+    if match is None:
+        train_cli.main(argv)
+        out = capsys.readouterr().out
+        assert "lr_scale=1.000" in out and "done at step 1" in out
+        assert "guard: skipped 0 non-finite steps" in out
+        assert latest_step("ckpt") == 1
+        recs = read_events("ev.jsonl")
+        validate_events(recs)
+        assert recs[0]["data"]["device_kind"] == "cpu"
+        with open("m.json") as f:
+            assert json.load(f)["metrics"]["gauges"][
+                "train_guard_lr_scale"]["value"] == 1.0
+        return
     with pytest.raises((RuntimeError, NotImplementedError), match=match):
-        train_cli.main(["--arch", "phi3-mini-3.8b", "--smoke", "--steps",
-                        "1", *argv])
+        train_cli.main(argv)
