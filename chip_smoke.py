@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths — Aaren and the
-softmax baseline, each also on packed documents, group remat,
+softmax baseline, each also on packed documents, the serving tier (prefix
+cache, drain, crash failover, quarantine, snapshots), group remat,
 fault-tolerant training with checkpoints and instrumented serving, the four
 paper-table proxies and the examples — on one CUDA card and check them.
 
@@ -64,6 +65,32 @@ own error):
    device time at the serving shape (a replayed CUDA graph, so host overhead
    drops out) beside its eager per-call time, its plain version's and its
    bound.
+4k. The full-width serving tier on phase 4's parameters: a
+   ``ReplicatedRouter`` of 2 replicas x 8 slots (chunk 16, greedy, the
+   replicas on the one card stepped in turn) serving 32 requests made of
+   one shared 256-token prefix (seed 1) and a unique 16-128-token suffix,
+   32 new tokens each.  (a) Undisturbed: the reference tokens, each row's top-2
+   logits kept.  (b) A ``PrefixCache`` shared by the replicas with the
+   prefix pinned: tokens bit-equal to (a); hits, misses, prefill tokens
+   and ticks saved, an entry's carry bytes beside a softmax KV cache's;
+   the cache saved and loaded with bit-equal carries.  (c) Replica 1
+   drained after 24 tier ticks: tokens bit-equal to (a).  (d) Replica 1
+   crashed (``kill_router_replica``) after 24 ticks: every request
+   finishes, those never on replica 1 bit-equal to (a), a failed-over one
+   differing only from a step where (a)'s top-1 - top-2 logit margin is
+   within 2 bf16 spacings of the top logit.  (e) Slot 3 of replica 0
+   poisoned after 24 ticks: that request ends with ``ERR_POISONED``, the
+   slot's carry is init bit for bit, every other request bit-equal to
+   (a).  (f) Phase 4's load on one engine saved after 20 ticks and loaded
+   into a fresh engine: tokens equal phase 4's.  (g) Batched temperature
+   sampling (0.8, top-k 50; 4 prompts of 128 tokens, 8 new): the engine's
+   tokens equal ``generate``'s, or differ only from a near tie of the
+   Gumbel-perturbed scores.  B1's launches are zeroed before and read
+   after every run and must equal 32 x the engine ticks that reached the
+   model (+ 32 for ``generate``'s prefill); no plain scan may see a CUDA
+   tensor.  The router turns a replica's exception into a failover: a run
+   fails if any replica but (d)'s fails over, if (d)'s fails by anything
+   but the injected crash, or if every replica is lost.
 4b. Full-width training: the serving model freed, ``phi3-mini-3.8b`` as
    registered (``remat="block"``, AdamW) through ``make_train_step`` and
    ``run_train_loop`` on ``SyntheticLMIterator`` batches of 4 x 1024
@@ -151,9 +178,13 @@ import gc
 import importlib.metadata
 import importlib.util
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1450,7 +1481,8 @@ def phase4_serving(torch, np, card: str):
     """Full-width serving, with no metrics registry or event sink installed.
     Returns (B1 launches, B1 row of the kernels' JSON at the serving shape,
     max |err| over captured inputs, {"tokens": each request's tokens,
-    "tick_ms": the tick median})."""
+    "tick_ms": the tick median, "requests": the prompts, "model": (api,
+    params), which phase 4k serves})."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.aaren_scan import aaren_scan, aaren_scan_plain
@@ -1518,6 +1550,9 @@ def phase4_serving(torch, np, card: str):
         finite["ok"] &= bool(torch.isfinite(logits).all())
         return greedy_sampler(logits, seeds)
 
+    checked_greedy.batched = True
+    checked_greedy.uses_seeds = False
+
     eng = CheckedEngine(api, params, n_slots=SLOTS, chunk=CHUNK)
     print(f"  engine warm-up {eng.warmup():.2f} s")
     gen_prompts = rng.integers(0, cfg.vocab, (GEN_B, GEN_P))
@@ -1584,7 +1619,8 @@ def phase4_serving(torch, np, card: str):
           f"  [{card}]")
     row = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by}
-    ref = {"tokens": [eng.finished[r] for r in rids], "tick_ms": tick_ms}
+    ref = {"tokens": [eng.finished[r] for r in rids], "tick_ms": tick_ms,
+           "requests": reqs, "model": (api, params)}
     return launches, row, err, ref
 
 
@@ -1618,6 +1654,416 @@ def _forbid_plain_on_card():
         for (mod, name), fn in zip(plains, saved):
             setattr(mod, name, fn)
     return undo
+
+
+TIER_REPLICAS, TIER_REQUESTS, TIER_PREFIX, TIER_NEW = 2, 32, 256, 32
+TIER_EVENT_TICK = 24     # drain / crash / poison before this tier tick
+TIER_MAX_TICKS = 1000    # (a) takes ~100: a tier that never drains fails
+SNAP_TICK = 20           # (f): the engine is saved after this many ticks
+TEMP_B, TEMP_P, TEMP_NEW = 4, 128, 8
+TIE_SPACINGS = 2.0       # a near tie: top-1 - top-2 <= 2 bf16 spacings
+
+
+def _bf16_spacing(x: float) -> float:
+    """The distance between bf16 neighbours at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def _tier_busy(router) -> bool:
+    return bool(router.front) or any(
+        router.alive[i] and (eng.queue
+                             or any(s is not None for s in eng.active))
+        for i, eng in enumerate(router.engines))
+
+
+def phase4k_serving_tier(torch, np, card: str, cfg, model, ref: dict):
+    """The serving tier at full width on phase 4's parameters: a
+    ``ReplicatedRouter`` of 2 replicas x 8 slots (chunk 16, greedy) serving
+    32 requests that share a 256-token system prefix, undisturbed (a), with
+    a shared prefix cache (b), with a drain (c), a crash (d) and a poisoned
+    slot (e) after 24 tier ticks; then an engine snapshot of phase 4's load
+    saved and loaded mid-run (f), and batched temperature sampling against
+    ``generate`` (g).  B1's launches are read around every run.  Returns
+    the B1 launches of the phase."""
+    from repro_torch.kernels.aaren_scan import aaren_scan
+    from repro_torch.models.lm import lm_state_init
+    from repro_torch.serving import (
+        ERR_POISONED,
+        PrefixCache,
+        ReplicatedRouter,
+        StreamingEngine,
+        generate,
+    )
+    from repro_torch.serving.prefix_cache import carry_bytes
+    from repro_torch.serving.sampler import (
+        greedy_sampler,
+        gumbel_noise,
+        request_seed,
+        temperature_sampler,
+    )
+    from repro_torch.testing import kill_router_replica, poison_engine_slot
+
+    api, params = model
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab, TIER_PREFIX)
+    prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab, n)])
+               for n in rng.integers(16, 129, TIER_REQUESTS)]
+
+    # Count the engine ticks that reach the model (a crashed replica's
+    # step raises before), and each request's prefill ticks.
+    lock = threading.Lock()
+    stepped = {"ticks": 0, "prefill": {}}
+    real_advance = StreamingEngine._advance
+
+    def counting_advance(self, tokens, lengths):
+        with lock:
+            stepped["ticks"] += 1
+            for s in self.active:
+                if s is not None and s.pending is not None:
+                    stepped["prefill"][s.request_id] = (
+                        stepped["prefill"].get(s.request_id, 0) + 1)
+        return real_advance(self, tokens, lengths)
+
+    def zero_counts():
+        aaren_scan.n_launches = 0
+        stepped["ticks"] = 0
+        stepped["prefill"] = {}
+
+    def read_counts(what: str) -> int:
+        torch.cuda.synchronize()
+        launches, ticks = aaren_scan.n_launches, stepped["ticks"]
+        _require(launches == cfg.n_layers * ticks,
+                 f"{what}: B1 launched {launches} times over {ticks} "
+                 f"engine ticks, want {cfg.n_layers} x {ticks}")
+        return launches
+
+    # (a)'s sampler: greedy, keeping each row's top-2 logits by seed.
+    top2 = []
+
+    def recording_greedy(logits, seeds):
+        top2.append((seeds, torch.topk(logits[:, 0], 2, dim=-1).values))
+        return greedy_sampler(logits, seeds)
+
+    recording_greedy.batched = True
+
+    def tier(label, sampler=greedy_sampler, cache=None, event=None,
+             after=None, alive=TIER_REPLICAS, crashed=()):
+        """Serve ``prompts`` on a fresh tier.  The router turns a replica's
+        exception into a failover; every one is recorded, and a run fails
+        unless exactly the replicas in ``crashed`` failed, each by the
+        injected crash, and ``alive`` replicas remain."""
+        router = ReplicatedRouter(
+            api, params, n_replicas=TIER_REPLICAS, n_slots=SLOTS,
+            chunk=CHUNK, sampler=sampler, prefix_cache=cache)
+        router.warmup()
+        failures = []
+        real_failover = router._failover
+
+        def failover(index, *, error):
+            failures.append((index, f"{type(error).__name__}: {error}"))
+            real_failover(index, error=error)
+
+        router._failover = failover
+        if cache is not None:
+            cache.pin(prefix)
+        zero_counts()     # the main path: counts from zero, read after
+        rids = [router.submit(p, TIER_NEW) for p in prompts]
+        tick_s, info = [], None
+        t0 = time.perf_counter()
+        while _tier_busy(router):
+            _require(any(router.alive), f"({label}) every replica failed "
+                     f"with requests outstanding: {failures}")
+            _require(len(tick_s) < TIER_MAX_TICKS, f"({label}) not done "
+                     f"after {TIER_MAX_TICKS} tier ticks")
+            if event is not None and len(tick_s) == TIER_EVENT_TICK:
+                info = event(router)
+            t1 = time.perf_counter()
+            router.step()
+            tick_s.append(time.perf_counter() - t1)
+            if after is not None and len(tick_s) == TIER_EVENT_TICK + 1:
+                after(router, info)
+        wall = time.perf_counter() - t0
+        launches = read_counts(label)
+        router.close()
+        _require([i for i, _ in failures] == list(crashed) and all(
+            "injected crash" in what for _, what in failures),
+            f"({label}) replicas failed over: {failures}, want "
+            f"{list(crashed)} by the injected crash")
+        _require(sum(router.alive) == alive, f"({label}) "
+                 f"{sum(router.alive)} replicas alive, want {alive}")
+        _require(not crashed or router.stats()["failed_over"] > 0,
+                 f"({label}) the crash failed over no request")
+        _require(crashed or router.stats()["failed_over"] == 0,
+                 f"({label}) {router.stats()} failed over with no crash")
+        out = {"router": router, "launches": launches, "ticks": len(tick_s),
+               "engine_ticks": stepped["ticks"],
+               "prefill": dict(stepped["prefill"]),
+               "tick_ms": statistics.median(tick_s) * 1e3, "wall": wall,
+               "tokens": {r: router.finished.get(r) for r in rids},
+               "info": info}
+        served = sum(len(t) for t in out["tokens"].values() if t)
+        print(f"  ({label}) {len(rids)} requests, {served} tokens in "
+              f"{len(tick_s)} tier ticks ({stepped['ticks']} engine ticks, "
+              f"{launches} B1 launches = {cfg.n_layers} x "
+              f"{stepped['ticks']}), {wall:.3f} s: tick median "
+              f"{out['tick_ms']:.3f} ms, {served / wall:.1f} tok/s  [{card}]")
+        return out
+
+    total = 0
+    StreamingEngine._advance = counting_advance
+    undo = _forbid_plain_on_card()
+    try:
+        # (a) Undisturbed: the reference tokens T0.
+        a = tier("a, undisturbed", sampler=recording_greedy)
+        t0_tokens = a["tokens"]
+        _require(not a["router"].errors and all(
+            t is not None and len(t) == TIER_NEW
+            for t in t0_tokens.values()), "(a) lost or cut a request")
+        total += a["launches"]
+        margin = {}
+        for seeds, vals in top2:
+            for s, (v1, v2) in zip(seeds.tolist(), vals.tolist()):
+                margin[s] = (v1, v2)
+
+        def near_tie(rid: int, step: int) -> tuple[bool, str]:
+            v1, v2 = margin[request_seed(0, rid, step)]
+            sp = _bf16_spacing(v1)
+            return (v1 - v2 <= TIE_SPACINGS * sp,
+                    f"rid {rid} step {step}: top-1 {v1:.6f} - top-2 "
+                    f"{v2:.6f} = {v1 - v2:.3e}, bf16 spacing {sp:.3e}")
+
+        # (b) A prefix cache shared by the replicas, the prefix pinned.
+        cache = PrefixCache(max_bytes=64 << 20)
+        matched = {}
+        real_lookup = cache.lookup
+
+        def lookup(prompt):
+            got = real_lookup(prompt)
+            matched[np.asarray(prompt, np.int32).tobytes()] = got[0]
+            return got
+
+        cache.lookup = lookup
+        b = tier("b, prefix cache", cache=cache)
+        _require(b["tokens"] == t0_tokens,
+                 "(b) prefix-cache tokens differ from (a)'s")
+        total += b["launches"]
+        st = cache.stats()
+        hit = [r for r, p in enumerate(prompts)
+               if matched[p.astype(np.int32).tobytes()]]
+        miss = [r for r in range(TIER_REQUESTS) if r not in hit]
+        key = next(k for k in cache._entries if k[0] == TIER_PREFIX)
+        entry = carry_bytes(cache._entries[key].carry)
+        kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.resolved_head_dim \
+            * TIER_PREFIX * 2
+        print(f"  (b) cache: {st['hits']} hits, {st['misses']} misses, "
+              f"{st['prefill_tokens_saved']} prefill tokens saved "
+              f"(predicted 24, 8, 4224), {st['entries']} entries, "
+              f"{st['bytes']} B; tier ticks {b['ticks']} with the cache, "
+              f"{a['ticks']} without")
+
+        def mean(xs):
+            return sum(xs) / len(xs) if xs else float("nan")
+
+        hit_b = mean([b["prefill"][r] for r in hit])
+        hit_a = mean([a["prefill"][r] for r in hit])
+        miss_b = mean([b["prefill"][r] for r in miss])
+        print(f"  (b) prefill ticks a request: hits {hit_b:.2f} (the same "
+              f"requests cold in (a): {hit_a:.2f}), misses {miss_b:.2f}")
+        print(f"  (b) an entry's carry: {entry} B (predicted 401408) for "
+              f"{TIER_PREFIX} tokens; a {TIER_PREFIX}-token softmax KV "
+              f"cache (bf16): {kv} B, {kv / entry:.1f}x")
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_4k_cache_")
+        try:
+            ts = time.perf_counter()
+            cache.save(tmp, 0)
+            save_s = time.perf_counter() - ts
+            nbytes = sum(f.stat().st_size for f in Path(tmp).rglob("*")
+                         if f.is_file())
+            loaded = PrefixCache(max_bytes=64 << 20)
+            StreamingEngine(api, params, n_slots=1, chunk=CHUNK,
+                            prefix_cache=loaded)      # binds the template
+            ts = time.perf_counter()
+            _require(loaded.load(tmp) == 0, "(b) cache load")
+            load_s = time.perf_counter() - ts
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        _require(list(loaded._entries) == list(cache._entries) and all(
+            x.tobytes() == y.tobytes()
+            for k, e in cache._entries.items()
+            for x, y in zip(
+                [v for st_ in e.carry for v in st_],
+                [v for st_ in loaded._entries[k].carry for v in st_])),
+            "(b) the loaded carries differ from the saved ones")
+        print(f"  (b) cache saved ({nbytes} B on disk, {save_s:.3f} s) and "
+              f"loaded ({load_s:.3f} s): {len(loaded)} entries, carries "
+              f"bit-equal")
+
+        # (c) Drain replica 1.
+        def drain(router):
+            ts = time.perf_counter()
+            n = router.drain(1)
+            return n, (time.perf_counter() - ts) * 1e3
+
+        c = tier("c, drain", event=drain, alive=TIER_REPLICAS - 1)
+        _require(c["tokens"] == t0_tokens, "(c) drained tokens differ "
+                 "from (a)'s")
+        total += c["launches"]
+        print(f"  (c) drained replica 1 after {TIER_EVENT_TICK} tier ticks:"
+              f" {c['info'][0]} requests migrated, export + inject "
+              f"{c['info'][1]:.3f} ms")
+
+        # (d) Crash replica 1.
+        def crash(router):
+            victims = {rid for rid, rec in router._records.items()
+                       if rec["replica"] == 1}
+            kill_router_replica(router, 1)
+            return victims
+
+        d = tier("d, crash", event=crash, alive=TIER_REPLICAS - 1,
+                 crashed=(1,))
+        total += d["launches"]
+        victims = d["info"]
+        _require(d["router"].stats()["failed_over"] == len(victims),
+                 f"(d) {d['router'].stats()['failed_over']} requests "
+                 f"failed over, want the {len(victims)} on replica 1")
+        _require(all(t is not None and len(t) == TIER_NEW
+                     for t in d["tokens"].values()),
+                 "(d) a request did not finish with its tokens")
+        ties = []
+        for rid, toks in d["tokens"].items():
+            if toks == t0_tokens[rid]:
+                continue
+            _require(rid in victims, f"(d) rid {rid}, never on replica 1, "
+                     "differs from (a)")
+            k = next(i for i, (x, y) in enumerate(zip(toks, t0_tokens[rid]))
+                     if x != y)
+            ok, what = near_tie(rid, k)
+            _require(ok, f"(d) failed-over {what}: not a near tie")
+            ties.append(what)
+        print(f"  (d) crashed replica 1 after {TIER_EVENT_TICK} tier ticks: "
+              f"{len(victims)} requests failed over "
+              f"({d['router'].stats()['failed_over']}), "
+              f"{len(victims) - len(ties)} equal to (a); divergences at "
+              f"near ties: {len(ties)}")
+        for what in ties:
+            print(f"    {what}")
+
+        # (e) Poison slot 3 of replica 0.
+        def poison(router):
+            slot = router.engines[0].active[3]
+            _require(slot is not None, "(e) slot 3 of replica 0 is free")
+            poison_engine_slot(router.engines[0], 3)
+            return slot.request_id
+
+        def check_freed(router, rid):
+            eng = router.engines[0]
+            init = lm_state_init(cfg, SLOTS, device=eng.device)
+            _require(eng.active[3] is None and all(
+                torch.equal(x[3], y[3]) for sx, sy in zip(eng.states, init)
+                for x, y in zip(sx, sy)),
+                "(e) the quarantined slot's carry is not init")
+
+        e = tier("e, quarantine", event=poison, after=check_freed)
+        total += e["launches"]
+        victim = e["info"]
+        _require(e["router"].errors == {victim: ERR_POISONED},
+                 f"(e) errors {e['router'].errors}")
+        _require(all(e["tokens"][r] == t0_tokens[r]
+                     for r in t0_tokens if r != victim),
+                 "(e) a batch-mate of the quarantined slot differs")
+        print(f"  (e) poisoned slot 3 of replica 0 (rid {victim}): "
+              f"quarantined, its carry init bit for bit, every other "
+              f"request equal to (a)")
+
+        # (f) Snapshot phase 4's load on one engine mid-run.
+        eng = StreamingEngine(api, params, n_slots=SLOTS, chunk=CHUNK)
+        zero_counts()
+        rids = [eng.submit(p, MAX_NEW) for p in ref["requests"]]
+        for _ in range(SNAP_TICK):
+            eng.step()
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_4k_engine_")
+        try:
+            ts = time.perf_counter()
+            eng.save(tmp, SNAP_TICK)
+            save_s = time.perf_counter() - ts
+            nbytes = sum(f.stat().st_size for f in Path(tmp).rglob("*")
+                         if f.is_file())
+            fresh = StreamingEngine(api, params, n_slots=SLOTS, chunk=CHUNK)
+            ts = time.perf_counter()
+            _require(fresh.load(tmp) == SNAP_TICK, "(f) engine load")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - ts
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        out = fresh.run()
+        total += read_counts("(f) snapshot")
+        _require([out[r] for r in rids] == ref["tokens"],
+                 "(f) restored tokens differ from phase 4's")
+        print(f"  (f) engine saved after {SNAP_TICK} ticks ({nbytes} B on "
+              f"disk, {save_s:.3f} s), loaded into a fresh engine "
+              f"({load_s:.3f} s): tokens equal phase 4's  [{card}]")
+
+        # (g) Batched temperature sampling, streaming against generate.
+        base = temperature_sampler(0.8, top_k=50)
+        scores = []
+
+        def recording(logits, seeds):
+            x = logits.float() / 0.8
+            kth = torch.topk(x, 50, dim=-1).values[..., -1:]
+            x = torch.where(x < kth, torch.full_like(x, -torch.inf), x)
+            g = x[:, 0] + gumbel_noise(seeds, x.shape[-1])
+            scores.append((seeds, torch.topk(g, 2, dim=-1).values,
+                           logits[:, 0].abs().amax(dim=-1)))
+            return base(logits, seeds)
+
+        recording.batched = True
+        temp_prompts = np.random.default_rng(7).integers(
+            0, cfg.vocab, (TEMP_B, TEMP_P))
+        zero_counts()
+        wave, _ = generate(api, params, temp_prompts, TEMP_NEW,
+                           sampler=recording)
+        torch.cuda.synchronize()
+        gen_launches = aaren_scan.n_launches
+        _require(gen_launches == cfg.n_layers,
+                 f"(g) generate launched B1 {gen_launches} times")
+        gap = {}
+        for seeds, vals, amax in scores:
+            for s, (v1, v2), m in zip(seeds.tolist(), vals.tolist(),
+                                      amax.tolist()):
+                gap[s] = (v1 - v2, _bf16_spacing(m) / 0.8)
+        eng = StreamingEngine(api, params, n_slots=SLOTS, chunk=CHUNK,
+                              sampler=base)
+        zero_counts()
+        rids = [eng.submit(p, TEMP_NEW) for p in temp_prompts]
+        got = eng.run()
+        total += read_counts("(g) temperature") + gen_launches
+        ties = []
+        for i, r in enumerate(rids):
+            want = wave[i].tolist()
+            if got[r] == want:
+                continue
+            k = next(j for j, (x, y) in enumerate(zip(got[r], want))
+                     if x != y)
+            g12, sp = gap[request_seed(0, i, k)]
+            _require(g12 <= TIE_SPACINGS * sp,
+                     f"(g) request {i} differs from generate at step {k}, "
+                     f"perturbed margin {g12:.3e} > {TIE_SPACINGS} x "
+                     f"{sp:.3e}")
+            ties.append(f"request {i} step {k}: perturbed margin "
+                        f"{g12:.3e}, bound {TIE_SPACINGS * sp:.3e}")
+        print(f"  (g) temperature 0.8, top-k 50, {TEMP_B} x {TEMP_P} "
+              f"prompts, {TEMP_NEW} new: {TEMP_B - len(ties)} of {TEMP_B} "
+              f"requests equal generate's; divergences at near ties: "
+              f"{len(ties)}")
+        for what in ties:
+            print(f"    {what}")
+    finally:
+        undo()
+        StreamingEngine._advance = real_advance
+    print(f"  phase 4k: {total} B1 launches, "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 def phase4b_training(torch, np, card: str, cfg, packed: bool = False):
@@ -1991,6 +2437,9 @@ def phase4d_softmax_generate(torch, np, card: str, cfg):
     def checked_greedy(logits, seeds):
         finite["ok"] &= bool(torch.isfinite(logits).all())
         return greedy_sampler(logits, seeds)
+
+    checked_greedy.batched = True
+    checked_greedy.uses_seeds = False
 
     generate(api, params, prompts, 2, cache_len=cache_len)  # warm-up
     torch.cuda.synchronize()
@@ -2747,7 +3196,12 @@ def main() -> int:
     serve_launches, b1_serve, err, serve_ref = phase4_serving(torch, np,
                                                               card)
     b1_err = max(b1_err, err)
-    gc.collect()               # the serving model went with its frame
+
+    # 4k. The serving tier on phase 4's parameters -------------------------
+    _phase("4k full-width serving tier", t0)
+    tier_launches = phase4k_serving_tier(torch, np, card, cfg,
+                                         serve_ref.pop("model"), serve_ref)
+    gc.collect()               # the serving model is freed here
     torch.cuda.empty_cache()
 
     # 4b. Full-width training ----------------------------------------------
@@ -2823,11 +3277,13 @@ def main() -> int:
         {"name": "aaren_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/aaren_scan.cu",
          "replaces": "src/repro/kernels/aaren_scan.py:190",
-         "launches": (serve_launches + train_launches["aaren_scan"]
+         "launches": (serve_launches + tier_launches
+                      + train_launches["aaren_scan"]
                       + group_launches["aaren_scan"]
                       + ft_launches["aaren_scan"] + obs_serve_launches
                       + task_launches["aaren_scan"]),
          "launches_by_path": {"serve": serve_launches,
+                              "serve_tier": tier_launches,
                               "train": train_launches["aaren_scan"],
                               "train_group": group_launches["aaren_scan"],
                               "train_guarded": ft_launches["aaren_scan"],

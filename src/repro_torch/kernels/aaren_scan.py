@@ -133,7 +133,7 @@ def _launch(s, v, m0, u0, w0, segment_starts, return_residuals):
     if err:
         raise RuntimeError("aaren_scan kernel launch failed: "
                            + lib.aaren_scan_error_string(err).decode())
-    aaren_scan.n_launches += 1
+    build.count_launch(aaren_scan)
     return (o, m_f, u_f, w_f) + res
 
 

@@ -139,7 +139,7 @@ def _launch(s, v, o, m, u, g, n0, g0, b0, segment_ends):
     if err:
         raise RuntimeError("aaren_scan_bwd kernel launch failed: "
                            + lib.aaren_scan_bwd_error_string(err).decode())
-    aaren_scan_bwd.n_launches += 1
+    build.count_launch(aaren_scan_bwd)
     return ds, dv, n1, g1, b1
 
 

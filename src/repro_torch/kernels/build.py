@@ -7,6 +7,9 @@ flags, so an edited source rebuilds and an unchanged one is loaded as it
 is.  Nothing is compiled at import:
 the first launch builds what it needs, and :func:`build` starts one
 ``nvcc`` per source, all at once, for callers that want every kernel ready.
+
+:func:`count_launch` is how every wrapper counts its launches: one lock
+for all of them, since the serving tier steps its replicas on threads.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -25,6 +29,14 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNELS = ("aaren_scan", "aaren_scan_bwd", "flash_fwd", "flash_bwd")
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.n_launches`` under the process-wide launch lock
+    (an unlocked ``+= 1`` from two threads can lose an update)."""
+    with _LAUNCH_LOCK:
+        wrapper.n_launches += 1
 
 
 def _nvcc() -> str:

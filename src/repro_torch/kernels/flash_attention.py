@@ -290,7 +290,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     _call("flash_fwd", "flash_fwd", q, k,
           (q, k, v, ql, kl, q_segment_ids, kv_segment_ids, o, lse), scale,
           causal, win)
-    flash_attention.n_launches += 1
+    build.count_launch(flash_attention)
     return (o, lse) if return_residuals else o
 
 
@@ -312,7 +312,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, q_lens, kv_lens, *, causal, window,
     _call("flash_bwd", "flash_bwd_dq", q, k,
           (q, k, v, do, lse, delta, q_lens, kv_lens, q_seg, kv_seg, dq),
           scale, causal, _window_arg(window))
-    flash_bwd_dq.n_launches += 1
+    build.count_launch(flash_bwd_dq)
     return dq
 
 
@@ -333,7 +333,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, q_lens, kv_lens, *, causal,
     _call("flash_bwd", "flash_bwd_dkv", q, k,
           (q, k, v, do, lse, delta, q_lens, kv_lens, q_seg, kv_seg, dk, dv),
           scale, causal, _window_arg(window))
-    flash_bwd_dkv.n_launches += 1
+    build.count_launch(flash_bwd_dkv)
     return dk, dv
 
 

@@ -7,6 +7,15 @@ unless ``--device cpu`` is given.  ``--attn-mode softmax`` serves the
 softmax baseline, whose KV-cache decode state only the wave engine takes;
 the wave engine prints the decode state's size.
 
+The serving tier: ``--replicas N`` serves through a ``ReplicatedRouter``
+of N streaming engines on the one device (``--route-policy``; ``--drain R``
+drains replica R after three ticks, migrating its requests' carries to the
+survivors); ``--max-queue`` bounds the admission queue (the router's front
+queue with replicas), ``--deadline-s`` gives every request a deadline, and
+``--prefix-cache-mb`` attaches a prefix-carry cache (``--pin-prefix``,
+``--prefix-cache-min-hits``; ``--prefix-cache-dir`` loads it at start and
+saves it at exit), shared by the replicas.
+
 Observability: ``--events`` writes the JSONL event log, ``--metrics-out``
 dumps the metrics-registry snapshot at exit, and ``--metrics-port`` serves
 live Prometheus text at ``/metrics`` (plus the snapshot document at
@@ -20,6 +29,8 @@ Example::
         --attn-mode softmax --engine wave --requests 4 --prompt-len 128
     python -m repro_torch.launch.serve --arch phi3-mini-3.8b --smoke \
         --events serve_events.jsonl --metrics-out serve_metrics.json
+    python -m repro_torch.launch.serve --arch phi3-mini-3.8b \
+        --replicas 2 --slots 8 --drain 1 --prefix-cache-mb 64
 """
 
 from __future__ import annotations
@@ -36,7 +47,10 @@ from repro_torch.models.factory import build
 from repro_torch.obs.events import EventLog, use_events
 from repro_torch.obs.export import serve_metrics, write_snapshot
 from repro_torch.obs.metrics import MetricsRegistry, use_metrics
-from repro_torch.serving.engine import (
+from repro_torch.serving import (
+    EngineOverloaded,
+    PrefixCache,
+    ReplicatedRouter,
     StreamingEngine,
     decode_state_bytes,
     generate,
@@ -66,6 +80,42 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="admission queue bound; overflow submits are shed "
+                         "(0 = unbounded).  With --replicas > 1 this bounds "
+                         "the router's front queue; the tier sheds only "
+                         "when every replica is saturated AND the front "
+                         "queue is full")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="run N streaming-engine replicas behind the "
+                         "occupancy-aware router (each with --slots slots; "
+                         "requests are dispatched per --route-policy, and "
+                         "a prefix cache is shared tier-wide)")
+    ap.add_argument("--route-policy", default="least-occupancy",
+                    choices=["least-occupancy", "round-robin", "jsq"],
+                    help="replica dispatch policy (--replicas > 1): "
+                         "emptiest batch first, strict rotation, or "
+                         "join-shortest-queue")
+    ap.add_argument("--drain", type=int, default=None, metavar="R",
+                    help="mid-run, drain replica R: its queued + active "
+                         "requests carry-migrate to the survivors "
+                         "byte-identically (needs --replicas >= 2)")
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help="per-request wall-clock deadline; expired requests "
+                         "error out (0 = none)")
+    ap.add_argument("--prefix-cache-mb", type=float, default=0.0,
+                    help="prompt-prefix carry cache budget in MiB "
+                         "(streaming engine only; 0 = off)")
+    ap.add_argument("--prefix-cache-min-hits", type=int, default=2,
+                    help="boundary must be seen this many times before its "
+                         "carry is cached (pinned prefixes skip this)")
+    ap.add_argument("--pin-prefix", action="append", default=[],
+                    metavar="IDS",
+                    help="comma-separated token ids of a prefix to pin "
+                         "(always cached, never evicted); repeatable")
+    ap.add_argument("--prefix-cache-dir", default=None,
+                    help="directory to load the prefix cache from at start "
+                         "and save it to at exit (crc'd checkpoint chunks)")
     ap.add_argument("--events", default=None,
                     help="path of the JSONL event log to write "
                          "(repro_torch.obs.events; off when omitted)")
@@ -118,6 +168,10 @@ def _run(args):
     n_tokens = args.requests * args.max_new
 
     if args.engine == "wave":
+        if args.prefix_cache_mb:
+            # A clean no-op, so one launch script serves both families.
+            print("[wave] --prefix-cache-mb ignored: prefix-state caching "
+                  "needs the streaming engine's position-free carries")
         # cache_len pinned to the timed call's, as in the JAX launcher.
         cache_len = args.prompt_len + args.max_new
         t0 = time.perf_counter()
@@ -135,11 +189,22 @@ def _run(args):
               f"({n_tokens / steady_s:.0f} tok/s); decode state "
               f"{decode_state_bytes(states) / 2**20:.3f} MiB")
         return
+    cache = _prefix_cache(args)
+    if args.replicas > 1:
+        _run_router(args, api, params, sampler, prompts, cache)
+        return
     eng = StreamingEngine(api, params, n_slots=args.slots, chunk=args.chunk,
-                          sampler=sampler, seed=args.seed)
+                          sampler=sampler, seed=args.seed,
+                          max_queue=args.max_queue or None,
+                          prefix_cache=cache)
+    _load_cache(args, cache, "streaming")
     warm_s = eng.warmup()
+    deadline = args.deadline_s or None
     for p in prompts:
-        eng.submit(p, args.max_new)
+        try:
+            eng.submit(p, args.max_new, deadline_s=deadline)
+        except EngineOverloaded:
+            pass   # shed at the door; counted in eng.n_shed
     t0 = time.perf_counter()
     out = eng.run()
     steady_s = time.perf_counter() - t0
@@ -147,7 +212,95 @@ def _run(args):
     print(f"[streaming] warm-up {warm_s:.2f}s | steady {steady_s:.2f}s for "
           f"{len(out)} requests / {served} tokens "
           f"({served / steady_s:.0f} tok/s) over {args.slots} slots, "
-          f"chunk {eng.chunk}")
+          f"chunk {eng.chunk}; per-slot state "
+          f"{decode_state_bytes(eng.states) / args.slots / 2**10:.1f} KiB"
+          f" (constant in sequence length)")
+    if eng.n_shed or eng.errors or eng.n_quarantined:
+        print(f"[streaming] degraded: shed {eng.n_shed}, errored "
+              f"{len(eng.errors)} (deadline/poison), quarantined "
+              f"{eng.n_quarantined} slots")
+    if cache is not None:
+        st = cache.stats()
+        print(f"[streaming] prefix cache: {st['entries']} entries / "
+              f"{st['bytes'] / 2**10:.1f} KiB, hit rate "
+              f"{st['hit_rate']:.0%}, {st['prefill_tokens_saved']} "
+              "prefill tokens saved")
+        _save_cache(args, cache, "streaming")
+
+
+def _prefix_cache(args):
+    if not args.prefix_cache_mb:
+        return None
+    return PrefixCache(max_bytes=int(args.prefix_cache_mb * 2**20),
+                       min_hits=args.prefix_cache_min_hits)
+
+
+def _load_cache(args, cache, tag: str) -> None:
+    """Pin the ``--pin-prefix`` prefixes and load ``--prefix-cache-dir``
+    (after an engine bound the cache to its chunk grid)."""
+    if cache is None:
+        return
+    for spec in args.pin_prefix:
+        cache.pin([int(t) for t in spec.split(",") if t.strip()])
+    if args.prefix_cache_dir:
+        try:
+            got = cache.load(args.prefix_cache_dir)
+            print(f"[{tag}] prefix cache: restored step {got} "
+                  f"({len(cache)} entries)")
+        except FileNotFoundError:
+            pass   # first run: nothing to restore yet
+
+
+def _save_cache(args, cache, tag: str) -> None:
+    if args.prefix_cache_dir:
+        cache.save(args.prefix_cache_dir, 0)
+        print(f"[{tag}] prefix cache saved to {args.prefix_cache_dir}")
+
+
+def _run_router(args, api, params, sampler, prompts, cache):
+    """--replicas > 1: the replicated tier (serving/router.py)."""
+    router = ReplicatedRouter(
+        api, params, n_replicas=args.replicas, n_slots=args.slots,
+        chunk=args.chunk, sampler=sampler, seed=args.seed,
+        policy=args.route_policy, max_queue=args.max_queue or None,
+        prefix_cache=cache)
+    _load_cache(args, cache, "router")
+    warm_s = router.warmup()
+    deadline = args.deadline_s or None
+    for p in prompts:
+        try:
+            router.submit(p, args.max_new, deadline_s=deadline)
+        except EngineOverloaded:
+            pass   # tier-wide shed; counted in router.n_shed
+    t0 = time.perf_counter()
+    try:
+        if args.drain is not None:
+            for _ in range(3):             # let the victim pick up work
+                router.step()
+            n = router.drain(args.drain)
+            print(f"[router] drained replica {args.drain}: {n} requests "
+                  "carry-migrated to survivors")
+        out = router.run()
+    finally:
+        router.close()
+    steady_s = time.perf_counter() - t0
+    served = sum(len(v) for v in out.values())
+    st = router.stats()
+    print(f"[router] warm-up {warm_s:.2f}s | steady {steady_s:.2f}s for "
+          f"{len(out)} requests / {served} tokens "
+          f"({served / steady_s:.0f} tok/s aggregate) over "
+          f"{args.replicas}x{args.slots} slots, policy "
+          f"{args.route_policy}")
+    print(f"[router] tier: alive {st['alive']}/{st['n_replicas']}, shed "
+          f"{st['shed']}, rerouted {st['rerouted']}, migrated "
+          f"{st['migrated']}, failed-over {st['failed_over']}, errors "
+          f"{st['errors']}")
+    if cache is not None:
+        cst = cache.stats()
+        print(f"[router] shared prefix cache: {cst['entries']} entries, "
+              f"hit rate {cst['hit_rate']:.0%}, "
+              f"{cst['prefill_tokens_saved']} prefill tokens saved")
+        _save_cache(args, cache, "router")
 
 
 if __name__ == "__main__":

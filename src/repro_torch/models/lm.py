@@ -19,7 +19,10 @@ Entry points, as in the JAX package:
   (the serving hot path);
 * :func:`lm_state_init` / :func:`lm_state_select` — the empty state, and a
   per-slot masked select of Aaren carries used to reset or keep slots (the
-  streaming engine serves Aaren models only).
+  streaming engine serves Aaren models only);
+* :func:`lm_state_take_slot` / :func:`lm_state_put_slot` — copy one slot's
+  carry out, and write a one-slot carry into masked slots (the prefix
+  cache, request migration).
 """
 
 from __future__ import annotations
@@ -229,3 +232,22 @@ def lm_state_select(mask: torch.Tensor, a: list, b: list) -> list:
 
     return [ScanState(*(leaf(x, y) for x, y in zip(sa, sb)))
             for sa, sb in zip(a, b)]
+
+
+def lm_state_take_slot(states: list, idx: int) -> list:
+    """A copy of slot ``idx``'s Aaren carry, each leaf keeping a size-1
+    batch axis, so that it round-trips through :func:`lm_state_put_slot`
+    unchanged.  Every leaf has its batch on axis 0, so no axis metadata is
+    needed (the JAX package's ``lm_state_batch_axes``)."""
+    return [ScanState(*(x[idx:idx + 1].clone() for x in st)) for st in states]
+
+
+def lm_state_put_slot(states: list, carry: list, mask: torch.Tensor) -> list:
+    """``carry`` (size-1 batch, as :func:`lm_state_take_slot` returns) in
+    every slot where ``mask`` (B,) is True; the other slots as they are."""
+    def leaf(batched, one):
+        return torch.where(mask.reshape((-1,) + (1,) * (batched.ndim - 1)),
+                           one, batched)
+
+    return [ScanState(*(leaf(x, y) for x, y in zip(st, c)))
+            for st, c in zip(states, carry)]

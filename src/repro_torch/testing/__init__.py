@@ -1,4 +1,4 @@
-"""Fault injection for the port's chaos tests (training half)."""
+"""Fault injection for the port's chaos tests."""
 
 from repro_torch.testing.faults import (  # noqa: F401
     FAULT_KINDS,
@@ -7,5 +7,7 @@ from repro_torch.testing.faults import (  # noqa: F401
     checkpoint_crc_ok,
     corrupt_checkpoint,
     faulty_loss,
+    kill_router_replica,
+    poison_engine_slot,
     send_preemption,
 )

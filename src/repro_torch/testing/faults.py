@@ -1,5 +1,5 @@
-"""Seeded fault injection for the training half of the chaos suite —
-port of ``repro.testing.faults``.
+"""Seeded fault injection for the chaos suite — port of
+``repro.testing.faults``.
 
 Every injector reproduces, at a controlled point, a failure class the
 fault-tolerance layer claims to survive:
@@ -14,14 +14,19 @@ fault-tolerance layer claims to survive:
   through the microbatch split unchanged), and the loss wrapper multiplies
   the loss by it, poisoning loss *and* grads exactly the way an fp
   overflow would.  The guard must skip those steps and keep training.
+* :func:`poison_engine_slot` — writes NaN into one serving slot's decode
+  carry.  The next tick's logits for that row are non-finite; the engine
+  must quarantine the slot and leave its batch-mates byte-identical.
+* :func:`kill_router_replica` — crashes one replica of a
+  ``ReplicatedRouter``: its next step raises and its carries and
+  bookkeeping are wiped, so the router can rebuild its requests only from
+  its own shadow records.
 * :func:`send_preemption` / :class:`PreemptingIterator` — a real SIGTERM to
   the current process (not a loop test-hook), exercising the actual signal
   handler → drain → sync-checkpoint path.
 
-The serving injectors (``poison_engine_slot``, ``kill_router_replica``)
-come with the port's serving tier (ROADMAP queue A item 9).  Injection
-points are deterministic (seeded RNG / explicit step indices): every chaos
-test replays bit-identically.
+Injection points are deterministic (seeded RNG / explicit step indices):
+every chaos test replays bit-identically.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from __future__ import annotations
 import os
 import signal
 import zlib
-from typing import Callable, Iterable
+from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
@@ -188,6 +193,58 @@ class FaultyLMIterator:
         batch["_fault_scale"] = np.asarray(scale, np.float32)
         self._i += 1
         return batch
+
+
+# ---------------------------------------------------------------------------
+# Serving faults
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def poison_engine_slot(engine: Any, slot: int) -> None:
+    """Write NaN into row ``slot`` of every float leaf of the engine's
+    decode carries (a simulated silent data corruption or bad kernel), on
+    their device.  With ``guard_logits`` the engine quarantines the slot on
+    its next tick and its batch-mates stay byte-identical."""
+    if not 0 <= slot < engine.n_slots:
+        raise ValueError(f"slot {slot} out of range [0, {engine.n_slots})")
+
+    def leaf(x):
+        if not x.is_floating_point():
+            return x
+        x = x.clone()
+        x[slot] = float("nan")
+        return x
+
+    engine.states = [type(st)(*(leaf(x) for x in st))
+                     for st in engine.states]
+
+
+def kill_router_replica(router: Any, index: int) -> None:
+    """Crash one router replica (a simulated process or device loss).
+
+    The replica's next step raises from ``_advance``, and its carries and
+    admission queue are wiped, so the router can rebuild only from its OWN
+    shadow records.  The active-slot skeleton stays (a crashed process
+    surfaces as a failed call, not as an idle engine) with its token lists
+    replaced by garbage: a failover that read the corpse's bookkeeping
+    would produce wrong tokens and fail the parity tests.
+    """
+    if not 0 <= index < router.n_replicas:
+        raise ValueError(
+            f"replica {index} out of range [0, {router.n_replicas})")
+    eng = router.engines[index]
+
+    def _dead_step(*a, **k):
+        raise RuntimeError(
+            f"injected crash: replica {index} lost (kill_router_replica)")
+
+    eng._advance = _dead_step
+    eng.states = None
+    eng.queue = []
+    for slot in eng.active:
+        if slot is not None:
+            slot.tokens = [-1] * len(slot.tokens)
+            slot.pending = None
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.tree import tree_leaves
 
 #: per-step metric keys a guarded train step emits (train/state.py)
@@ -65,7 +66,9 @@ class GuardState(NamedTuple):
     window_count: torch.Tensor  # () i32 valid entries (saturates at W)
 
 
-def init_guard_state(cfg: GuardConfig, device="cpu") -> GuardState:
+def init_guard_state(cfg: GuardConfig, device="cuda") -> GuardState:
+    device = resolve_device(device)
+
     def i32():
         return torch.zeros((), dtype=torch.int32, device=device)
 

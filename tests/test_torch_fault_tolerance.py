@@ -116,7 +116,8 @@ def test_guard_update_matches_jax_exactly(skip_on_spike):
     kw = dict(recover_every=4, spike_window=6, spike_min_history=3,
               spike_factor=3.0, skip_on_spike=skip_on_spike)
     jcfg, tcfg = jguard.GuardConfig(**kw), tguard.GuardConfig(**kw)
-    jg, tg = jguard.init_guard_state(jcfg), tguard.init_guard_state(tcfg)
+    jg = jguard.init_guard_state(jcfg)
+    tg = tguard.init_guard_state(tcfg, device="cpu")
     rng = np.random.default_rng(7)
     jupdate = jax.jit(lambda g, f, n: jguard.guard_update(jcfg, g, f, n))
     n_skip = n_spike = 0
