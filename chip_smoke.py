@@ -3,7 +3,8 @@
 softmax baseline, each also on packed documents, the serving tier (prefix
 cache, drain, crash failover, quarantine, snapshots), group remat,
 fault-tolerant training with checkpoints and instrumented serving, the four
-paper-table proxies and the examples — on one CUDA card and check them.
+paper-table proxies, the examples, and the hybrid recurrentgemma-9b with
+the dense configs of its slice — on one CUDA card and check them.
 
 Run from the root of the repository, on a machine with one NVIDIA H100:
 
@@ -169,6 +170,42 @@ own error):
    chunked prefill (one-shot == chunked is a gate), streaming inference,
    and ``train_lm`` at its full width (~100M parameters, both mixers) for
    ``TRAIN_LM_STEPS`` steps; their launches printed.
+4l. The hybrid family and the dense configs of ROADMAP A10a.  (e) The
+   smoke configs of ``recurrentgemma-9b``, ``gemma3-27b``, ``llama3-405b``
+   and ``minitron-8b``, both modes, f32: greedy tokens on the card equal
+   to the CPU (the streaming engine at its default chunk, ``generate`` past
+   the window), the loss and every gradient within phase 3's bars.  (a)
+   ``recurrentgemma-9b`` as registered (bf16, 38 layers: 12 x (rglru,
+   rglru, Aaren) + 2 rglru, d_model 4096, 16 x 256 heads, MQA, vocab
+   256000, 8.579 B parameters), random weights from seed 0: phase 4's 16
+   requests through the ``StreamingEngine`` at 8 slots and chunk 1, counts
+   zeroed just before and read just after (12 B1 launches a tick, no plain
+   version reached with a CUDA tensor), tick median, tok/s, the decode
+   state a slot (1,263,104 B) and a profile of 5 ticks; B1's inputs of one
+   tick held against its plain version; a drain (export + inject) after
+   80 ticks and a snapshot restored into a fresh engine 80 ticks later,
+   every request's tokens bit-equal to the undisturbed run.  (b) The same
+   parameters in softmax mode: ``generate`` of B = 2, P = 2304 (past the
+   2048 window) and 16 new tokens, counts zeroed just before and read just
+   after (12 B3 launches, one prefill), the window KV rings and RG-LRU
+   states' bytes, and every token against the full forward's argmax
+   (equal, or a flip the two paths' measured disagreement allows) with
+   the logits within ``HY_GEN_RTOL``; then the f32 control: the same
+   ``generate`` at full width and 6 layers in f32, whose logits must stay
+   within ``HY_F32_RTOL`` of the full forward's, its tokens equal the
+   forward's argmax, and its window KV rings equal the forward's ring
+   slot for slot within ``HY_F32_RING``.  (c) Training at full width and 12 layers
+   (3.423 B parameters) in both modes, 1 x 4096 tokens (the window binds),
+   AdamW, ``remat="block"``, 1 warm-up and 2 measured steps: counts zeroed
+   just before and read just after (Aaren B1 8 and B2 4 a step; softmax B3
+   8, B4 4 and B5 4), step time, peak memory, MFU, a profile of one step.
+   (d) B1–B5 at these shapes against their plain versions, with device
+   time, bound and library call (SDPA under the banded causal mask, with
+   ``enable_gqa``): B1 at the serving tick (R = 128, N = 1, d = 256) and
+   with residuals at training (R = 16, N = 4096), B2 at training, bf16
+   B3–B5 at training (H = 16, G = 1, N = 4096, d = 256, window 2048), B3
+   at the prefill (B = 2, N = 2304), and B3–B5 at gemma3-27b's local shape
+   (H = 32, G = 16, d = 128, window 1024, N = 4096, random inputs).
 5. Result lines: the kernels' JSON, the card, and the contract line.
 """
 
@@ -1176,9 +1213,10 @@ def flash_kernel_times(torch, q, k, v, do, lens, causal, window, card,
     """B3, B4 and B5 at the given (main-path) inputs, with segment ids
     ``seg`` when given: device time in a replayed CUDA graph, eager call,
     plain version, bound, and the ``scaled_dot_product_attention``
-    yardstick (forward for B3, its backward for B4 + B5 together; with ids,
-    under the block-diagonal causal boolean mask; timed here, never called
-    by the port).  Returns {wrapper name: row}."""
+    yardstick (forward for B3, its backward for B4 + B5 together; with ids
+    or a window, under the block-diagonal or banded causal boolean mask;
+    with fewer kv heads, ``enable_gqa``; timed here, never called by the
+    port).  Returns {wrapper name: row}."""
     import math
 
     import torch.nn.functional as F
@@ -1210,16 +1248,24 @@ def flash_kernel_times(torch, q, k, v, do, lens, causal, window, card,
     }
     library = {"flash_attention": None, "flash_bwd_dq": None,
                "flash_bwd_dkv": None}
-    if lens is None and window is None and causal and q.shape[1] == k.shape[1]:
+    if lens is None and causal:
         qs, ks, vs = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
         sdpa = dict(is_causal=True)
-        if seg is not None:
+        if seg is not None or window is not None:
+            # A boolean mask: the causal band (of ``window`` keys), within
+            # one document when ``seg`` is given.
             pos = torch.arange(n_q, device=q.device)
-            same = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None]
-                                                           != 0)
-            sdpa = dict(attn_mask=(same & (pos[None, :] <= pos[:, None])
-                                   )[:, None])
+            allowed = pos[None, :] <= pos[:, None]
+            if window is not None:
+                allowed = allowed & (pos[None, :] > pos[:, None] - window)
+            allowed = allowed[None]
+            if seg is not None:
+                allowed = allowed & (seg[:, :, None] == seg[:, None, :]) & (
+                    seg[:, :, None] != 0)
+            sdpa = dict(attn_mask=allowed[:, None])
+        if q.shape[1] != k.shape[1]:
+            sdpa["enable_gqa"] = True
         fwd_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, **sdpa), n_iter)
         out = F.scaled_dot_product_attention(qs, ks, vs, **sdpa)
@@ -3132,6 +3178,662 @@ def phase4i_examples(torch, np, card: str) -> None:
                          f"train_lm {mode}: non-finite loss")
 
 
+HYBRID = "recurrentgemma-9b"
+HY_SLOTS, HY_NEW = 8, 32          # phase 4's traffic: REQUESTS prompts
+HY_GEN_B, HY_GEN_P, HY_GEN_NEW = 2, 2304, 16
+HY_TRAIN_LAYERS, HY_TRAIN_N = 12, 4096
+HY_WARM, HY_MEASURED = 1, 2
+HY_EVENT_TICK = 80       # drain after, and snapshot this many ticks later
+# (b): decode's logits against the full forward's, as a fraction of the
+# step's largest logit.  The bf16 38-layer run reads 6.21e-2 (GEMV against
+# GEMM in bf16, the bf16 KV ring against flash's f32-accumulated tiles).
+# The f32 control below reads 8.4e-5 on an H100 with the same decode path,
+# so that gap is bf16 rounding, and the bf16 bar is twice its reading.
+HY_GEN_RTOL = 0.125
+# The f32 control: full width, 6 layers (two attn_local layers), f32
+# weights and compute; what is left is the bf16 rounding of the KV ring.
+# At reduced width on the CPU a sound decode reads 1.5e-4 and one whose
+# ring is laid out oldest first (the reference's layout) 8.6e-3.
+HY_F32_LAYERS = 6
+HY_F32_RTOL = 1e-3
+# A ring slot's head vector against the forward's: a bf16 spacing is 2^-8
+# of it at worst; a slot holding another position's key is off by ~1.4.
+HY_F32_RING = 2.0 ** -6
+SMALL_ARCHS = ("recurrentgemma-9b", "gemma3-27b", "llama3-405b",
+               "minitron-8b")
+
+
+def _n_mixers(cfg, kind: str) -> int:
+    from repro_torch.models.lm import layer_sigs
+
+    return sum(sig[0] == kind for sig in layer_sigs(cfg))
+
+
+def phase4l_small_configs(torch, np) -> None:
+    """(e) The smoke configs of the four A10a architectures, both modes,
+    f32: greedy tokens on the card (kernels) equal to the CPU (plain
+    versions) — the streaming engine at its default chunk in Aaren mode,
+    ``generate`` past the window in softmax mode — and the loss and every
+    gradient within phase 3's bars."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.factory import build
+    from repro_torch.serving.engine import StreamingEngine, generate
+    from repro_torch.tree import tree_leaves
+
+    counters = _counts()
+    for arch in SMALL_ARCHS:
+        for mode in ("aaren", "softmax"):
+            small = build(smoke_config(arch, attn_mode=mode))
+            cpu_params = small.init(0, device="cpu")
+            prompts = np.random.default_rng(120).integers(
+                0, small.cfg.vocab, (3, 12))
+            batch = np.random.default_rng(121).integers(
+                0, small.cfg.vocab, (2, 24))
+            before = {k: c.n_launches for k, c in counters.items()}
+            toks, losses, grads = {}, {}, {}
+            for dev in ("cpu", "cuda"):
+                params = _to(cpu_params, dev)
+                if mode == "aaren":
+                    eng = StreamingEngine(small, params, n_slots=2)
+                    rids = [eng.submit(p[:n], 5)
+                            for p, n in zip(prompts, (12, 5, 1))]
+                    res = eng.run()
+                    toks[dev] = [res[r] for r in rids]
+                else:
+                    toks[dev] = generate(small, params, prompts,
+                                         5)[0].tolist()
+                leaves = tree_leaves(params)
+                for p in leaves:
+                    p.requires_grad_(True)
+                loss, _ = small.loss(params, {
+                    "tokens": torch.from_numpy(batch).to(dev)})
+                grads[dev] = torch.autograd.grad(loss, leaves)
+                losses[dev] = loss.item()
+            launched = {k: c.n_launches - before[k]
+                        for k, c in counters.items()}
+            kernels = (("aaren_scan", "aaren_scan_bwd") if mode == "aaren"
+                       else ("flash_attention", "flash_bwd_dq",
+                             "flash_bwd_dkv"))
+            what = f"small {arch} {mode}"
+            _require(all(launched[k] > 0 for k in kernels),
+                     f"{what}: the card path skipped a kernel: {launched}")
+            _require(toks["cpu"] == toks["cuda"], f"{what}: card tokens "
+                     f"{toks['cuda']} != CPU tokens {toks['cpu']}")
+            rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+            _require(rel <= 1e-5, f"{what}: loss on the card "
+                     f"{losses['cuda']} != on the CPU {losses['cpu']}")
+            gerr = 0.0
+            for a, b in zip(grads["cuda"], grads["cpu"]):
+                scale = b.abs().max().item()
+                err = (a.cpu() - b).abs().max().item()
+                _require(err <= TOL["rtol"] * scale + 1e-6, f"{what}: a "
+                         f"gradient differs by {err:.3e} (max |CPU| "
+                         f"{scale:.3e}) between the card and the CPU")
+                gerr = max(gerr, err / max(scale, 1e-6))
+            print(f"  {what}: greedy tokens on the card == on the CPU; loss "
+                  f"|card - CPU| / CPU = {rel:.2e}; {len(grads['cpu'])} "
+                  f"gradients within {gerr:.2e} of max |CPU|; launches "
+                  + ", ".join(f"{k} {launched[k]}" for k in kernels))
+
+
+def phase4l_hybrid_serving(torch, np, card: str):
+    """(a) Aaren-mode serving of the full-width ``recurrentgemma-9b``.
+    Returns (B1 launches, B1's captured serving inputs, max |err| of B1 on
+    them, (api, params))."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.aaren_scan import aaren_scan
+    from repro_torch.models.factory import build
+    from repro_torch.models.param import count_params
+    from repro_torch.serving.engine import (
+        StreamingEngine,
+        decode_state_bytes,
+        generate,
+    )
+    from repro_torch.serving.sampler import greedy_sampler
+
+    cfg = get_config(HYBRID)
+    _require((cfg.family, cfg.attn_mode, cfg.param_dtype, cfg.compute_dtype,
+              cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+              cfg.resolved_head_dim, cfg.d_rnn, cfg.window, cfg.vocab)
+             == ("hybrid", "aaren", "bfloat16", "bfloat16", 38, 4096, 16, 1,
+                 256, 4096, 2048, 256000), str(cfg))
+    api = build(cfg)
+    n_aaren = _n_mixers(cfg, "aaren")
+    _require(n_aaren == 12 and _n_mixers(cfg, "rglru") == 26,
+             f"pattern {cfg.effective_pattern()}")
+    ti = time.perf_counter()
+    params = api.init(0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = count_params(api.specs())
+    print(f"  {HYBRID} init {time.perf_counter() - ti:.2f} s: "
+          f"{n_params / 1e9:.3f} B params, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on card")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 257, REQUESTS)
+    reqs = [rng.integers(0, cfg.vocab, n) for n in lens]
+
+    # (a) B1's inputs of one real tick (not counted).
+    captured = []
+    real_scan = ops.aaren_scan
+
+    def capture(*args, **kw):
+        captured.append([a.clone() for a in args])
+        return real_scan(*args, **kw)
+
+    cap = StreamingEngine(api, params, n_slots=HY_SLOTS)
+    _require(cap.chunk == 1, f"a hybrid engine's chunk is {cap.chunk}")
+    for p in reqs[:HY_SLOTS]:
+        cap.submit(p, HY_NEW)
+    ops.aaren_scan = capture
+    try:
+        cap.step()
+    finally:
+        ops.aaren_scan = real_scan
+    _require(len(captured) == n_aaren,
+             f"captured {len(captured)} scans, want {n_aaren}")
+    err = 0.0
+    for i in (0, n_aaren - 1):
+        err = max(err, _compare_scan(torch, captured[i],
+                                     f"hybrid serving tick, Aaren layer {i}"))
+    del cap
+
+    eng = StreamingEngine(api, params, n_slots=HY_SLOTS)
+    print(f"  engine warm-up {eng.warmup():.2f} s")
+    undo = _forbid_plain_on_card()
+    # The main path: counts from zero, read right after.
+    aaren_scan.n_launches = 0
+    try:
+        rids = [eng.submit(p, HY_NEW) for p in reqs]
+        tick_s = []
+        ts = time.perf_counter()
+        while eng.queue or any(s is not None for s in eng.active):
+            t1 = time.perf_counter()
+            eng.step()
+            tick_s.append(time.perf_counter() - t1)
+        serve_s = time.perf_counter() - ts
+    finally:
+        undo()
+    launches = aaren_scan.n_launches
+    ticks = len(tick_s)
+    _require(not eng.errors and eng.n_quarantined == 0,
+             f"errors {eng.errors}, quarantined {eng.n_quarantined}")
+    _require(all(len(eng.finished[r]) == HY_NEW for r in rids),
+             "a request did not return max_new tokens")
+    _require(launches == n_aaren * ticks,
+             f"B1 launched {launches} times, want {n_aaren} x {ticks}")
+    ref = [eng.finished[r] for r in rids]
+    served = sum(map(len, ref))
+    per_slot = decode_state_bytes(eng.states) // HY_SLOTS
+    tick_ms = statistics.median(tick_s) * 1e3
+    print(f"  (a) served {len(rids)} requests / {served} tokens in {ticks} "
+          f"ticks (chunk 1), {serve_s:.3f} s: tick median {tick_ms:.3f} ms,"
+          f" {served / serve_s:.1f} tok/s; B1 launches {launches} = "
+          f"{n_aaren} x {ticks}; decode state {per_slot} B a slot  [{card}]")
+    _require(per_slot == 26 * 40960 + 12 * 16512,
+             f"decode state {per_slot} B a slot, want 1,263,104")
+    for p in reqs[:HY_SLOTS]:
+        eng.submit(p, HY_NEW)
+    eng.step()
+    _print_profile(_device_profile(torch, eng.step, 5), "hybrid tick (5 "
+                   "ticks)", card)
+    eng.run()
+    del eng
+
+    # A drain (export + inject) after HY_EVENT_TICK ticks, then a snapshot
+    # restored into a fresh engine HY_EVENT_TICK ticks later: every
+    # request's tokens bit-equal to the undisturbed run.
+    src = StreamingEngine(api, params, n_slots=HY_SLOTS)
+    rids = [src.submit(p, HY_NEW) for p in reqs]
+    for _ in range(HY_EVENT_TICK):
+        src.step()
+    dst = StreamingEngine(api, params, n_slots=HY_SLOTS)
+    tm = time.perf_counter()
+    descs = src.export_requests()
+    for desc in descs:
+        dst.inject_request(desc)
+    torch.cuda.synchronize()
+    move_ms = (time.perf_counter() - tm) * 1e3
+    for _ in range(HY_EVENT_TICK):
+        dst.step()
+    snap = dst.snapshot()
+    fresh = StreamingEngine(api, params, n_slots=HY_SLOTS)
+    fresh.restore(snap)
+    fresh.run()
+    done = {**src.finished, **fresh.finished}
+    _require([done[r] for r in rids] == ref, "hybrid drain + snapshot: "
+             "tokens differ from the undisturbed run")
+    print(f"  (a) drain after {HY_EVENT_TICK} ticks: {len(descs)} requests "
+          f"exported + injected in {move_ms:.3f} ms; snapshot "
+          f"{HY_EVENT_TICK} ticks later restored into a fresh engine: every "
+          f"request's tokens bit-equal to the undisturbed run  [{card}]")
+    del src, dst, fresh, snap
+    return launches, captured[0], err, (api, params)
+
+
+def _recording_greedy(steps: list):
+    """A greedy sampler that keeps each step's logits in ``steps``."""
+    from repro_torch.serving.sampler import greedy_sampler
+
+    def sample(logits, seeds):
+        steps.append(logits[:, 0].float())
+        return greedy_sampler(logits, seeds)
+
+    sample.batched = True
+    sample.uses_seeds = False
+    return sample
+
+
+def _decode_against_forward(torch, cfg, params, prompts, toks, steps, *,
+                            rings: bool = False):
+    """``generate``'s per-step logits (``steps``, one (B, V) a step) against
+    the full forward over prompt + generated tokens.  Returns, each (B,
+    new) on the host: |decode - forward| over the vocabulary as a fraction
+    of the step's largest logit, whether the token is the forward's argmax,
+    whether the forward's top-2 margin is within twice that disagreement
+    (the least a flip needs), the margin and the disagreement; and, with
+    ``rings``, the forward's per-layer states, each window layer's KV ring
+    laid out as ``generate`` keeps it."""
+    from repro_torch.models import lm
+
+    dev = steps[0].device
+    toks = toks.to(dev)
+    seq = torch.cat([torch.as_tensor(prompts, device=dev), toks[:, :-1]],
+                    dim=1)
+    with torch.inference_mode():
+        full, states = lm.lm_apply(cfg, params, seq, collect_state=rings,
+                                   cache_len=cfg.window if rings else None)
+    full = full[:, prompts.shape[1] - 1:]
+    dec = torch.stack(steps, dim=1)                       # (B, new, V)
+    delta = (dec - full).abs().amax(dim=-1)
+    rel = delta / full.abs().amax(dim=-1)
+    top2 = full.topk(2, dim=-1)
+    margin = top2.values[..., 0] - top2.values[..., 1]
+    agree = top2.indices[..., 0] == toks
+    return (rel.cpu(), agree.cpu(), (margin <= 2 * delta).cpu(),
+            margin.cpu(), delta.cpu(), states)
+
+
+def phase4l_hybrid_generate(torch, np, card: str, api, params):
+    """(b) Softmax-mode ``generate`` of the full-width ``recurrentgemma-9b``
+    past its window, on (a)'s parameters (the Aaren query tokens go
+    unread).  Every step's logits are held against the full forward over
+    prompt + generated tokens (:func:`_decode_against_forward`): within
+    ``HY_GEN_RTOL`` of the step's largest logit, and a token differs from
+    the forward's argmax only where the two paths' disagreement allows a
+    flip.  Returns (B3 launches, B3's captured prefill call {"args",
+    "kw"})."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build
+    from repro_torch.serving.engine import decode_state_bytes, generate
+
+    soft = build(api.cfg.replace(attn_mode="softmax"))
+    cfg = soft.cfg
+    n_local = _n_mixers(cfg, "attn_local")
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab,
+                                                (HY_GEN_B, HY_GEN_P))
+    steps = []
+    prefill = {}
+    real_fwd = ops.flash_attention
+
+    def capture_fwd(*args, **kw):
+        if not prefill:
+            prefill["args"] = [a.clone() for a in args]
+            prefill["kw"] = dict(kw)
+        return real_fwd(*args, **kw)
+
+    ops.flash_attention = capture_fwd
+    try:
+        generate(soft, params, prompts, 2)       # warm-up, and B3's inputs
+    finally:
+        ops.flash_attention = real_fwd
+    torch.cuda.synchronize()
+    undo = _forbid_plain_on_card()
+    # The main path: counts from zero, read right after.
+    fa.flash_attention.n_launches = 0
+    fa.flash_bwd_dq.n_launches = fa.flash_bwd_dkv.n_launches = 0
+    try:
+        tg = time.perf_counter()
+        toks, states = generate(soft, params, prompts, HY_GEN_NEW,
+                                sampler=_recording_greedy(steps))
+        gen_s = time.perf_counter() - tg
+    finally:
+        undo()
+    gen = (fa.flash_attention.n_launches, fa.flash_bwd_dq.n_launches,
+           fa.flash_bwd_dkv.n_launches)
+    _require(gen == (n_local, 0, 0), f"generate launched B3/B4/B5 {gen} "
+             f"times, want ({n_local}, 0, 0): one prefill")
+    _require(tuple(toks.shape) == (HY_GEN_B, HY_GEN_NEW),
+             f"generate returned {tuple(toks.shape)}")
+    kv = [st for st in states if "k" in st]
+    _require(len(kv) == n_local and all(
+        st["k"].shape[1] == cfg.window
+        and int(st["index"]) == HY_GEN_P + HY_GEN_NEW - 1 for st in kv),
+        "the window KV rings do not hold the last window positions")
+    kv_bytes = decode_state_bytes([[st["k"], st["v"]] for st in kv])
+    rnn_bytes = decode_state_bytes([st for st in states if "h" in st])
+
+    rel, agree, explained, margin, delta, _ = _decode_against_forward(
+        torch, cfg, params, prompts, toks, steps)
+    print(f"  (b) softmax generate B={HY_GEN_B} P={HY_GEN_P} "
+          f"new={HY_GEN_NEW}: {gen_s:.3f} s; B3 launches {gen[0]} (one "
+          f"prefill); window KV rings (k, v) {kv_bytes} B "
+          f"({kv_bytes // HY_GEN_B} B a row) + RG-LRU states {rnn_bytes} B"
+          f"  [{card}]")
+    _require(kv_bytes == HY_GEN_B * n_local * cfg.window * cfg.n_kv_heads
+             * cfg.resolved_head_dim * 2 * 2, f"KV rings {kv_bytes} B")
+    print(f"  (b) against the full forward over prompt + tokens: "
+          f"{int(agree.sum())}/{agree.numel()} tokens its argmax; "
+          f"|logits - forward's| / max |logit| per step: prefill "
+          f"{rel[:, 0].max().item():.2e}, decode max "
+          f"{rel[:, 1:].max().item():.2e}, median "
+          f"{rel[:, 1:].median().item():.2e}; forward's top-2 margin where "
+          f"a token differs: {margin[~agree].tolist()} against twice "
+          f"the disagreement {(2 * delta)[~agree].tolist()}")
+    _require(bool((agree | explained).all()), "softmax generate: a token "
+             "differs from the full forward's argmax by more than the two "
+             "paths' disagreement explains")
+    _require(rel.max().item() <= HY_GEN_RTOL, f"softmax generate: logits "
+             f"{rel.max().item():.3e} of max |logit| from the full forward's")
+    return gen[0], prefill, rel.max().item()
+
+
+def phase4l_generate_f32_control(torch, np, card: str, bf16_rel: float):
+    """(b) in f32: ``generate`` as in (b) on the full-width
+    ``recurrentgemma-9b`` cut to ``HY_F32_LAYERS`` layers, f32 weights from
+    seed 0 and f32 compute, so that only the bf16 rounding of the window
+    KV rings is left between decode and the full forward.  The logits must
+    stay within ``HY_F32_RTOL`` of the step's largest logit, a token differ
+    from the forward's argmax only where that small disagreement allows a
+    flip, and every window ring hold, slot for slot, the keys and values
+    the full forward's ring holds, each head's vector within
+    ``HY_F32_RING`` of its norm: a decode that reads or writes the wrong
+    positions fails here, where the bf16 run's rounding would hide it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.factory import build
+    from repro_torch.serving.engine import generate
+
+    cfg = get_config(HYBRID, n_layers=HY_F32_LAYERS, attn_mode="softmax",
+                     param_dtype="float32", compute_dtype="float32")
+    tc = time.perf_counter()
+    api = build(cfg)
+    params = api.init(0, device="cuda")
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab,
+                                                (HY_GEN_B, HY_GEN_P))
+    steps = []
+    toks, states = generate(api, params, prompts, HY_GEN_NEW,
+                            sampler=_recording_greedy(steps))
+    rel, agree, explained, margin, _, fwd = _decode_against_forward(
+        torch, cfg, params, prompts, toks, steps, rings=True)
+    ring_err = 0.0          # max |ring - forward's| / |forward's|, a head
+    for got, want in zip(states, fwd):
+        if "k" not in got:
+            continue
+        _require(int(got["index"]) == int(want["index"]),
+                 f"f32 control: ring index {int(got['index'])} against the "
+                 f"forward's {int(want['index'])}")
+        for key in ("k", "v"):
+            a, b = got[key].float(), want[key].float()
+            ring_err = max(ring_err, ((a - b).norm(dim=-1)
+                                      / b.norm(dim=-1)).max().item())
+    print(f"  (b) f32 control, {HY_F32_LAYERS} layers at full width "
+          f"({time.perf_counter() - tc:.1f} s): |logits - forward's| / "
+          f"max |logit| max {rel.max().item():.3e}, median "
+          f"{rel.median().item():.3e} (bf16 38 layers: {bf16_rel:.3e}); "
+          f"{int(agree.sum())}/{agree.numel()} tokens the forward's argmax "
+          f"(smallest margin {margin.min().item():.3e}); window rings "
+          f"against the forward's: |a - b| / |b| over a head's vector at "
+          f"most {ring_err:.3e}  [{card}]")
+    _require(ring_err <= HY_F32_RING, f"f32 control: a window ring slot is "
+             f"{ring_err:.3e} of its norm from the full forward's")
+    _require(bool((agree | explained).all()), "f32 control: a token "
+             "differs from the full forward's argmax by more than the two "
+             "paths' disagreement explains")
+    _require(rel.max().item() <= HY_F32_RTOL, f"f32 control: logits "
+             f"{rel.max().item():.3e} of max |logit| from the full "
+             "forward's")
+
+
+def phase4l_hybrid_training(torch, np, card: str, mode: str):
+    """(c) Training of ``recurrentgemma-9b`` at full width and
+    ``HY_TRAIN_LAYERS`` layers in ``mode``, on 1 x ``HY_TRAIN_N`` tokens,
+    AdamW, ``remat="block"``.  Returns ({kernel: launches}, the first
+    step's first captured call of each kernel, {"step_ms", "peak"})."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLMIterator
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build
+    from repro_torch.models.param import count_params
+    from repro_torch.train.loop import LoopConfig, run_train_loop
+    from repro_torch.train.optim import make_optimizer, warmup_cosine
+    from repro_torch.train.state import init_train_state, make_train_step
+
+    cfg = get_config(HYBRID, n_layers=HY_TRAIN_LAYERS, attn_mode=mode)
+    _require((cfg.remat, cfg.optimizer) == ("block", "adamw"), str(cfg))
+    n_attn = _n_mixers(cfg, "aaren" if mode == "aaren" else "attn_local")
+    api = build(cfg)
+    n_params = count_params(api.specs())
+    steps = HY_WARM + HY_MEASURED
+    ti = time.perf_counter()
+    params = api.init(0, device="cuda")
+    opt = make_optimizer(cfg.optimizer, warmup_cosine(3e-4, 1, steps))
+    state = init_train_state(params, opt)
+    step_fn = make_train_step(api.loss, opt, max_grad_norm=1.0)
+    torch.cuda.synchronize()
+    print(f"  {mode}: {HY_TRAIN_LAYERS} layers, {n_params / 1e9:.3f} B "
+          f"params, init {time.perf_counter() - ti:.2f} s: params + AdamW "
+          f"moments {torch.cuda.memory_allocated() / 2**30:.2f} GiB on card")
+    data = SyntheticLMIterator(vocab=cfg.vocab, seq_len=HY_TRAIN_N, batch=1,
+                               seed=0)
+    names = (("aaren_scan", "aaren_scan_bwd") if mode == "aaren" else
+             ("flash_attention", "flash_attention_bwd"))
+    reals = {n: getattr(ops, n) for n in names}
+    captured = {}
+
+    def spy(name):
+        def wrapped(*args, **kw):
+            if name not in captured:
+                captured[name] = ([a.clone() for a in args], dict(kw))
+            return reals[name](*args, **kw)
+        return wrapped
+
+    losses, finite = [], {"ok": True}
+
+    def on_log(step, m):
+        finite["ok"] &= bool(np.isfinite(m["loss"])
+                             and np.isfinite(m["grad_norm"]))
+        losses.append(m["loss"])
+        print(f"  step {step}: loss {m['loss']:.4f} grad_norm "
+              f"{m['grad_norm']:.4f} {m['step_time_s'] * 1e3:.1f} ms")
+
+    counters = _counts()
+    for n in names:
+        setattr(ops, n, spy(n))
+    undo = _forbid_plain_on_card()
+    torch.cuda.reset_peak_memory_stats()
+    # The main path: counts from zero, read right after.
+    for c in counters.values():
+        c.n_launches = 0
+    try:
+        result = run_train_loop(step_fn, state, data,
+                                LoopConfig(total_steps=steps, log_every=1),
+                                on_log=on_log)
+    finally:
+        for n in names:
+            setattr(ops, n, reals[n])
+        undo()
+    launches = {k: c.n_launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    _require(finite["ok"], f"non-finite loss or grad norm: {losses}")
+    _require(result.state.step == steps, f"ran {result.state.step} steps")
+    want = ({"aaren_scan": 2 * n_attn * steps,
+             "aaren_scan_bwd": n_attn * steps} if mode == "aaren" else
+            {"flash_attention": 2 * n_attn * steps,
+             "flash_bwd_dq": n_attn * steps, "flash_bwd_dkv": n_attn * steps})
+    want = {k: want.get(k, 0) for k in launches}
+    _require(launches == want, f"launches {launches}, want {want}")
+    step_s = [m["step_time_s"] for _, m in result.history[HY_WARM:]]
+    step_ms = statistics.median(step_s) * 1e3
+    mfu = 6 * n_params * HY_TRAIN_N / (step_ms / 1e3) / BF16_DENSE_FLOPS
+    print(f"  (c) {mode} training 1 x {HY_TRAIN_N}: step median "
+          f"{step_ms:.3f} ms ({', '.join(f'{s * 1e3:.1f}' for s in step_s)}"
+          f" ms), {HY_TRAIN_N / (step_ms / 1e3):.1f} tokens/s, MFU "
+          f"{mfu:.2%}, peak memory {peak / 2**30:.2f} GiB; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + f"  [{card}]")
+    train_state = {"state": result.state}
+    batch = next(data)
+
+    def one_step():
+        train_state["state"], _ = step_fn(train_state["state"], batch)
+
+    _print_profile(_device_profile(torch, one_step, 1),
+                   f"hybrid {mode} training step", card, top=12)
+    del train_state, result, state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({k: v for k, v in launches.items() if v}, captured,
+            {"step_ms": step_ms, "peak": peak})
+
+
+def _hybrid_kernel_rows(torch, np, card, serve_cap, train_cap):
+    """(d) B1–B5 at the hybrid's shapes against their plain versions, with
+    device time, bound and library call: B1 at the serving tick (R = 8 x 16,
+    N = 1, d = 256) and with residuals at training (R = 16, N = 4096); B2
+    at training; bf16 B3–B5 at training (B = 1, H = 16, G = 1, N = 4096,
+    d = 256, window 2048), B3 at the prefill (B = 2, N = 2304), and B3–B5
+    at gemma3-27b's local shape (H = 32, G = 16, d = 128, window 1024,
+    N = 4096, random inputs).  Returns ({kernel: {shape: row}}, {kernel:
+    max |err|})."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.aaren_scan import aaren_scan, aaren_scan_plain
+    from repro_torch.kernels.aaren_scan_bwd import (
+        aaren_scan_bwd,
+        aaren_scan_bwd_plain,
+    )
+
+    rows = {k: {} for k in ("aaren_scan", "aaren_scan_bwd", "flash_attention",
+                            "flash_bwd_dq", "flash_bwd_dkv")}
+    errs = dict.fromkeys(rows, 0.0)
+
+    def scan_row(name, label, fn, plain, bound, n_iter, plain_iter):
+        ms, call_ms, plain_ms, plain_call_ms = _kernel_times(
+            torch, fn, plain, n_iter, plain_iter)
+        bound_ms, bound_by, nbytes = bound
+        print(f"  {name} at {label}: device {ms * 1e3:.3f} us (eager call "
+              f"{call_ms * 1e3:.2f} us), plain device {plain_ms * 1e3:.2f} "
+              f"us (eager call {plain_call_ms * 1e3:.2f} us), bound "
+              f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B), "
+              f"{ms / bound_ms:.2f}x the bound  [{card}]")
+        rows[name][label] = {"ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "library_ms": None}
+
+    s, v, m0, u0, w0 = serve_cap["b1"]
+    r, n, d = v.shape
+    scan_row("aaren_scan", f"serve R={r} N={n} d={d}",
+             lambda: aaren_scan(s, v, m0, u0, w0),
+             lambda: aaren_scan_plain(s, v, m0, u0, w0),
+             _b1_bound(r, n, d, residuals=False), 200, 20)
+
+    (args, kw) = train_cap["aaren"]["aaren_scan"]
+    _require(kw.get("segment_starts") is None, f"B1 call {sorted(kw)}")
+    errs["aaren_scan"] = _compare_scan_residuals(
+        torch, args, "hybrid training step, first Aaren layer")
+    s, v, m0, u0, w0 = args
+    r, n, d = v.shape
+    scan_row("aaren_scan", f"train R={r} N={n} d={d}",
+             lambda: aaren_scan(s, v, m0, u0, w0, return_residuals=True),
+             lambda: aaren_scan_plain(s, v, m0, u0, w0,
+                                      return_residuals=True),
+             _b1_bound(r, n, d, residuals=True), 20, 3)
+    (bwd, kw) = train_cap["aaren"]["aaren_scan_bwd"]
+    errs["aaren_scan_bwd"] = _compare_bwd(
+        torch, bwd, "hybrid training step, last Aaren layer")
+    scan_row("aaren_scan_bwd", f"train R={r} N={n} d={d}",
+             lambda: aaren_scan_bwd(*bwd), lambda: aaren_scan_bwd_plain(*bwd),
+             _b2_bound(r, n, d), 20, 3)
+
+    def flash_rows(label, q, k, v, do, window, check_label):
+        got = _check_flash(torch, q, k, v, do, None, True, window,
+                           check_label)
+        for key in errs:
+            errs[key] = max(errs[key], got.get(key, 0.0))
+        for name, row in flash_kernel_times(torch, q, k, v, do, None, True,
+                                            window, card,
+                                            plain_iter=2).items():
+            rows[name][label] = {key: row[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "tflops")}
+
+    (fwd_args, kw) = train_cap["softmax"]["flash_attention"]
+    (bwd_args, bkw) = train_cap["softmax"]["flash_attention_bwd"]
+    q, k, v, o, lse, do = bwd_args
+    _require(bkw.get("window") == 2048 and bkw.get("q_lens") is None
+             and q.dtype == torch.bfloat16,
+             f"the hybrid's flash backward call: {sorted(bkw)}")
+    b, h, n_q, d = q.shape
+    flash_rows(f"train B={b} H={h} G={k.shape[1]} N={n_q} d={d} window "
+               "2048", q, k, v, do, 2048,
+               "hybrid softmax training step, an attn_local layer")
+    qp, kp, vp = serve_cap["b3"]["args"][:3]
+    _require(serve_cap["b3"]["kw"].get("window") == 2048,
+             f"prefill flash call: {serve_cap['b3']['kw']}")
+    dop = torch.randn_like(qp)
+    b, h, n_q, d = qp.shape
+    label = f"prefill B={b} H={h} G={kp.shape[1]} N={n_q} d={d} window 2048"
+    got = _check_flash(torch, qp, kp, vp, dop, None, True, 2048,
+                       "hybrid softmax generate prefill, first attn_local "
+                       "layer")
+    for key in errs:
+        errs[key] = max(errs[key], got.get(key, 0.0))
+    row = flash_kernel_times(torch, qp, kp, vp, dop, None, True, 2048, card,
+                             plain_iter=2)["flash_attention"]
+    rows["flash_attention"][label] = {key: row[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops")}
+    q, k, v, do = _flash_inputs(torch, np, 1, 32, 16, 4096, 128, "bfloat16",
+                                seed=400)
+    flash_rows("gemma3-27b local B=1 H=32 G=16 N=4096 d=128 window 1024",
+               q, k, v, do, 1024, "gemma3-27b local shape (random inputs)")
+    return rows, errs
+
+
+def phase4l_hybrid(torch, np, card: str):
+    """Phase 4l: (e) the four A10a smoke configs card against CPU, (a)–(b)
+    full-width recurrentgemma-9b serving, (c) its training in both modes at
+    12 layers, (d) B1–B5 at its shapes.  Returns ({kernel: {"serve_hybrid":
+    n, "train_hybrid": n}}, {kernel: {shape: row}}, {kernel: max |err|})."""
+    phase4l_small_configs(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    b1_serve, b1_args, b1_err, (api, params) = phase4l_hybrid_serving(
+        torch, np, card)
+    b3_serve, b3_call, bf16_rel = phase4l_hybrid_generate(
+        torch, np, card, api, params)
+    serve_launches = {"aaren_scan": b1_serve, "flash_attention": b3_serve}
+    serve_cap = {"b1": b1_args, "b3": b3_call}
+    del api, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase4l_generate_f32_control(torch, np, card, bf16_rel)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches, train_cap = {}, {}
+    for mode in ("aaren", "softmax"):
+        launches, train_cap[mode], _ = phase4l_hybrid_training(
+            torch, np, card, mode)
+        train_launches.update(launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows, errs = _hybrid_kernel_rows(torch, np, card, serve_cap, train_cap)
+    errs["aaren_scan"] = max(errs["aaren_scan"], b1_err)
+    by_path = {k: {"serve_hybrid": serve_launches.get(k, 0),
+                   "train_hybrid": train_launches.get(k, 0)} for k in rows}
+    return by_path, rows, errs
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3270,6 +3972,12 @@ def main() -> int:
     # 4i. The examples -------------------------------------------------------
     _phase("4i examples", t0)
     phase4i_examples(torch, np, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4l. The hybrid recurrentgemma-9b and the A10a smoke configs -----------
+    _phase("4l hybrid recurrentgemma-9b", t0)
+    hy_paths, hy_rows, hy_errs = phase4l_hybrid(torch, np, card)
 
     # 5. Results ---------------------------------------------------------------
     _phase("5 results", t0)
@@ -3377,6 +4085,13 @@ def main() -> int:
                        "causal boolean mask",
             "shape": "packed training, layer 0: B=4 H=G=32 N=1024 d=96 bf16 "
                      "causal, segment ids"})
+    for row in kernels:   # the hybrid's launches and shapes (phase 4l)
+        name = row["name"]
+        if name in hy_paths:
+            row["launches_by_path"].update(hy_paths[name])
+            row["launches"] += sum(hy_paths[name].values())
+            row["max_abs_err"] = max(row["max_abs_err"], hy_errs[name])
+            row["hybrid"] = hy_rows[name]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,13 @@
 """Config registry: the architectures the port serves."""
 
-from repro_torch.configs import aaren_paper, phi3_mini_3p8b  # noqa: F401  (registration)
+from repro_torch.configs import (  # noqa: F401  (import for registration)
+    aaren_paper,
+    gemma3_27b,
+    llama3_405b,
+    minitron_8b,
+    phi3_mini_3p8b,
+    recurrentgemma_9b,
+)
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
     get_config,

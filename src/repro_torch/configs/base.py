@@ -4,9 +4,11 @@ A field-for-field copy of ``repro.configs.base.ArchConfig`` so that the port
 imports nothing of the JAX package; ``tests/test_torch_model.py`` fails if
 the two drift apart.  Each architecture the port serves is an
 :class:`ArchConfig` in its own module under ``repro_torch/configs``;
-``get_config(name)`` resolves them.  ``attn_mode='aaren'`` replaces
-softmax-attention mixers with Aaren prefix-scan attention — the only mode
-the port runs so far.
+``get_config(name)`` resolves them.  ``attn_mode='aaren'`` (the default)
+replaces softmax-attention mixers with Aaren prefix-scan attention;
+``attn_mode='softmax'`` keeps them, the paper's baseline.  The port builds
+the ``dense`` and ``hybrid`` families; the other families' configs come
+with their mixers.
 """
 
 from __future__ import annotations

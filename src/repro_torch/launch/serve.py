@@ -31,6 +31,10 @@ Example::
         --events serve_events.jsonl --metrics-out serve_metrics.json
     python -m repro_torch.launch.serve --arch phi3-mini-3.8b \
         --replicas 2 --slots 8 --drain 1 --prefix-cache-mb 64
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b \
+        --requests 16 --slots 8 --max-new 32
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b \
+        --attn-mode softmax --engine wave --requests 2 --prompt-len 2304
 """
 
 from __future__ import annotations
@@ -74,8 +78,10 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
-    ap.add_argument("--chunk", type=int, default=16,
-                    help="prefill chunk size of the streaming engine")
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="prefill chunk size of the streaming engine (0 = "
+                         "the engine's default: 16 for an all-Aaren model, "
+                         "1 with RG-LRU layers)")
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
@@ -193,7 +199,8 @@ def _run(args):
     if args.replicas > 1:
         _run_router(args, api, params, sampler, prompts, cache)
         return
-    eng = StreamingEngine(api, params, n_slots=args.slots, chunk=args.chunk,
+    eng = StreamingEngine(api, params, n_slots=args.slots,
+                          chunk=args.chunk or None,
                           sampler=sampler, seed=args.seed,
                           max_queue=args.max_queue or None,
                           prefix_cache=cache)
@@ -261,7 +268,7 @@ def _run_router(args, api, params, sampler, prompts, cache):
     """--replicas > 1: the replicated tier (serving/router.py)."""
     router = ReplicatedRouter(
         api, params, n_replicas=args.replicas, n_slots=args.slots,
-        chunk=args.chunk, sampler=sampler, seed=args.seed,
+        chunk=args.chunk or None, sampler=sampler, seed=args.seed,
         policy=args.route_policy, max_queue=args.max_queue or None,
         prefix_cache=cache)
     _load_cache(args, cache, "router")

@@ -16,6 +16,8 @@ Example::
     python -m repro_torch.launch.train --arch phi3-mini-3.8b --smoke \
         --steps 100 --batch 8 --seq-len 64 --guard --ckpt-dir ckpt \
         --events events.jsonl --metrics-out metrics.json
+    python -m repro_torch.launch.train --arch recurrentgemma-9b --smoke \
+        --steps 3 --device cpu
 """
 
 from __future__ import annotations

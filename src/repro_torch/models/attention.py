@@ -95,8 +95,9 @@ def softmax_sequence(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     carries them (``prompt_lens``, ``prompt_pad``) so :func:`softmax_step`
     masks the padded gap.  ``cache_len``: the decode cache to return —
     ``>= N`` keeps every position, ``< N`` the trailing window as a full
-    ring buffer in bf16 (ragged rows would need per-row ring indices, and
-    raise), ``None`` no cache (training).  Packed rows: ``segment_ids``
+    ring buffer in bf16, position ``j`` in slot ``j mod cache_len`` (ragged
+    rows would need per-row ring indices, and raise), ``None`` no cache
+    (training).  Packed rows: ``segment_ids``
     (B, N) go to the flash kernels' segment masks (attention never crosses
     a document, padding id 0 reads 0), and RoPE rotates by ``positions``
     (B, N), the within-document positions, derived from the ids when not
@@ -135,8 +136,13 @@ def softmax_sequence(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         raise NotImplementedError(
             "ragged lengths with a trailing-window ring cache needs per-row "
             "ring indices; use cache_len >= N")
-    return y, {"k": k[:, n - cache_len:].to(torch.bfloat16),
-               "v": v[:, n - cache_len:].to(torch.bfloat16),
+    # The trailing window as the ring softmax_step reads and writes:
+    # position j in slot j mod cache_len.  (The JAX package stores it
+    # oldest first, so its next decode overwrites a slot that is still in
+    # the window and keeps one that left it; ROADMAP queue C.)
+    shift = n % cache_len
+    return y, {"k": k[:, n - cache_len:].roll(shift, 1).to(torch.bfloat16),
+               "v": v[:, n - cache_len:].roll(shift, 1).to(torch.bfloat16),
                "index": torch.tensor(n, dtype=torch.int32, device=x.device)}
 
 

@@ -6,9 +6,9 @@ Parameters are a plain tree: ``{"embed", "final_norm", "unembed"?,
 package's order: period ``i``, pattern position ``pos`` is layer
 ``i·len(pattern) + pos``, then the remainder ("rest") layers; the JAX
 package's stacked ``lax.scan`` over periods becomes a Python loop.  Decode
-states are a list with one entry per layer — an Aaren ``ScanState`` carry
-or a softmax KV-cache dict — with the batch on axis 0 of every tensor but
-the cache's scalar ``index``.
+states are a list with one entry per layer — an Aaren ``ScanState`` carry,
+an RG-LRU ``{"h", "conv"}`` dict or a softmax KV-cache dict — with the
+batch on axis 0 of every tensor but the cache's scalar ``index``.
 
 Entry points, as in the JAX package:
 
@@ -18,8 +18,9 @@ Entry points, as in the JAX package:
 * :func:`lm_prefill_chunk` — advance every carry by one fixed-shape chunk
   (the serving hot path);
 * :func:`lm_state_init` / :func:`lm_state_select` — the empty state, and a
-  per-slot masked select of Aaren carries used to reset or keep slots (the
-  streaming engine serves Aaren models only);
+  per-slot masked select of position-free states (Aaren carries and
+  RG-LRU states, which the streaming engine serves) used to reset or keep
+  slots;
 * :func:`lm_state_take_slot` / :func:`lm_state_put_slot` — copy one slot's
   carry out, and write a one-slot carry into masked slots (the prefix
   cache, request migration).
@@ -33,7 +34,6 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.scan_attention import ScanState
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.layers import (
@@ -44,6 +44,7 @@ from repro_torch.models.layers import (
     norm_specs,
     unembed_specs,
 )
+from repro_torch.tree import tree_map
 
 
 def layer_sigs(cfg: ArchConfig) -> list[tuple[str, str]]:
@@ -213,8 +214,8 @@ def lm_prefill_chunk(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
 def lm_state_init(cfg: ArchConfig, batch: int, cache_len: int | None = None,
                   device="cuda") -> list:
     """The empty decode state of every layer: the ⊕-identity Aaren carry,
-    or an empty bf16 KV cache of ``cache_len`` slots (softmax layers need
-    one)."""
+    a zero RG-LRU state, or an empty bf16 KV cache of ``cache_len`` slots
+    (softmax layers need one)."""
     dev = resolve_device(device)
     return [blocks.block_state_init(sig, cfg, batch, cache_len, dev)
             for sig in layer_sigs(cfg)]
@@ -223,23 +224,25 @@ def lm_state_init(cfg: ArchConfig, batch: int, cache_len: int | None = None,
 def lm_state_select(mask: torch.Tensor, a: list, b: list) -> list:
     """Per slot: ``a``'s state where ``mask`` (B,) is True, else ``b``'s.
 
-    Every leaf keeps its batch on axis 0, so the engine resets freed slots
-    with ``lm_state_select(freed, init, states)`` and keeps idle slots with
+    ``a`` and ``b`` are per-layer states of one structure whose leaves all
+    keep their batch on axis 0 (Aaren ``ScanState`` carries, RG-LRU dicts,
+    or both in one model), so the engine resets freed slots with
+    ``lm_state_select(freed, init, states)`` and keeps idle slots with
     ``lm_state_select(live, new, old)``.
     """
     def leaf(x, y):
         return torch.where(mask.reshape((-1,) + (1,) * (x.ndim - 1)), x, y)
 
-    return [ScanState(*(leaf(x, y) for x, y in zip(sa, sb)))
-            for sa, sb in zip(a, b)]
+    return tree_map(leaf, a, b)
 
 
 def lm_state_take_slot(states: list, idx: int) -> list:
-    """A copy of slot ``idx``'s Aaren carry, each leaf keeping a size-1
-    batch axis, so that it round-trips through :func:`lm_state_put_slot`
-    unchanged.  Every leaf has its batch on axis 0, so no axis metadata is
-    needed (the JAX package's ``lm_state_batch_axes``)."""
-    return [ScanState(*(x[idx:idx + 1].clone() for x in st)) for st in states]
+    """A copy of slot ``idx``'s state (every layer's carry), each leaf
+    keeping a size-1 batch axis, so that it round-trips through
+    :func:`lm_state_put_slot` unchanged.  Every leaf has its batch on axis
+    0, so no axis metadata is needed (the JAX package's
+    ``lm_state_batch_axes``)."""
+    return tree_map(lambda x: x[idx:idx + 1].clone(), states)
 
 
 def lm_state_put_slot(states: list, carry: list, mask: torch.Tensor) -> list:
@@ -249,5 +252,4 @@ def lm_state_put_slot(states: list, carry: list, mask: torch.Tensor) -> list:
         return torch.where(mask.reshape((-1,) + (1,) * (batched.ndim - 1)),
                            one, batched)
 
-    return [ScanState(*(leaf(x, y) for x, y in zip(st, c)))
-            for st, c in zip(states, carry)]
+    return tree_map(leaf, states, carry)

@@ -19,9 +19,9 @@ so streaming and wave generation sample identically.  The built-in
 samplers take one call for all rows; a streaming tick reads the device
 once, the sampled tokens and each row's logit finiteness together.
 
-A request's whole context is its per-layer ``(m, u, w)`` carry, a few
-hundred KB at full width: a cached prefix or a migrated request moves as
-one host copy of it.
+A request's whole context is its per-layer carry — Aaren's ``(m, u, w)``,
+RG-LRU's ``{"h", "conv"}`` — a few hundred KB to about a MB at full width:
+a cached prefix or a migrated request moves as one host copy of it.
 
 The streaming engine reports through ``repro_torch.obs`` under the JAX
 package's names: the ``serve_*`` counters, gauges and TTFT/ITL histograms
@@ -39,7 +39,6 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core.scan_attention import ScanState
 from repro_torch.models.factory import ModelAPI
 from repro_torch.models.lm import (
     lm_prefill_chunk,
@@ -56,7 +55,7 @@ from repro_torch.serving.sampler import (
     request_seed,
     request_seeds,
 )
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 
 class EngineOverloaded(RuntimeError):
@@ -78,28 +77,27 @@ def decode_state_bytes(states) -> int:
 
 
 def carry_to_host(carry: list) -> list:
-    """An Aaren carry (list of ``ScanState``) as numpy arrays, in one
-    device-to-host copy."""
-    leaves = [x for st in carry for x in st]
-    flat = torch.cat([x.reshape(-1) for x in leaves]).cpu().numpy()
-    out, off = [], 0
-    for x in leaves:
-        out.append(flat[off:off + x.numel()].reshape(tuple(x.shape)))
-        off += x.numel()
-    return [ScanState(*out[i:i + 3]) for i in range(0, len(out), 3)]
+    """A carry (one state a layer: an Aaren ``ScanState`` or an RG-LRU
+    dict) with numpy f32 leaves, in one device-to-host copy.  A bf16 leaf
+    (the RG-LRU conv tail) is widened to f32, exactly."""
+    leaves = tree_leaves(carry)
+    flat = torch.cat([x.reshape(-1).float() for x in leaves]).cpu().numpy()
+    pieces = iter(np.split(flat, np.cumsum([x.numel() for x in leaves])))
+    return tree_map(lambda x: next(pieces).reshape(tuple(x.shape)),
+                        carry)
 
 
-def carry_to_device(carry: list, device) -> list:
-    """A host carry (numpy ``ScanState`` leaves, as :func:`carry_to_host`
-    returns) as tensors on ``device``, in one host-to-device copy."""
-    leaves = [np.asarray(x, np.float32) for st in carry for x in st]
+def carry_to_device(carry: list, device, like: list) -> list:
+    """A host carry (numpy leaves, as :func:`carry_to_host` returns) as
+    tensors on ``device``, in one host-to-device copy; each leaf takes the
+    dtype of its leaf in ``like`` (a state of the same structure, any batch
+    size)."""
+    leaves = [np.asarray(x, np.float32) for x in tree_leaves(carry)]
     flat = torch.from_numpy(np.concatenate([x.reshape(-1) for x in leaves]))
-    flat = flat.to(device)
-    out, off = [], 0
-    for x in leaves:
-        out.append(flat[off:off + x.size].reshape(x.shape))
-        off += x.size
-    return [ScanState(*out[i:i + 3]) for i in range(0, len(out), 3)]
+    pieces = iter(torch.split(flat.to(device), [x.size for x in leaves]))
+    return tree_map(
+        lambda x, ref: next(pieces).reshape(np.shape(x)).to(ref.dtype),
+        carry, like)
 
 
 def _sample_rows(sampler: Callable, logits: torch.Tensor, seed: int, rids,
@@ -258,7 +256,7 @@ class _Queued:
     prompt: np.ndarray | None = None   # original prompt (cache + re-export)
     tokens: list = dataclasses.field(default_factory=list)
     n_sampled: int = 0
-    carry: Any = None            # host carry (numpy ScanStates), or None
+    carry: Any = None            # host carry (numpy leaves), or None
 
 
 def _validate_request(prompt, max_new_tokens: int,
@@ -287,9 +285,11 @@ def _validate_request(prompt, max_new_tokens: int,
 class StreamingEngine:
     """Chunked-prefill continuous batching over ``n_slots`` decode slots.
 
-    All-Aaren models only: the decode state is a position-free ``(m, u, w)``
-    carry per layer and head, so admitting a request needs no cache
-    reshaping and any ``chunk`` works (masked positions are ⊕-identity).
+    Position-free decode states only (Aaren and RG-LRU mixers), so
+    admitting a request needs no cache reshaping.  An all-Aaren model takes
+    any ``chunk`` (masked positions are ⊕-identity; default 16); an RG-LRU
+    carry advances one token at a time, so a model with RG-LRU layers runs
+    at ``chunk == 1`` (the default there), as in the JAX package.
 
     ``prefix_cache`` (optional :class:`~repro_torch.serving.prefix_cache
     .PrefixCache`) caches prompt-prefix carries across requests: an admitted
@@ -323,7 +323,8 @@ class StreamingEngine:
     """
 
     def __init__(self, api: ModelAPI, params: dict, *, n_slots: int = 4,
-                 chunk: int = 16, sampler: Callable = greedy_sampler,
+                 chunk: int | None = None,
+                 sampler: Callable = greedy_sampler,
                  seed: int = 0, max_queue: int | None = None,
                  guard_logits: bool = True, prefix_cache=None):
         pattern = api.cfg.effective_pattern()
@@ -332,10 +333,13 @@ class StreamingEngine:
                 "StreamingEngine requires position-free decode state "
                 "(aaren/rglru/ssd mixers only); use generate() for "
                 "KV-cache models.")
-        if any(m != "aaren" for m in pattern):
+        pure_aaren = all(m == "aaren" for m in pattern)
+        if chunk is None:
+            chunk = 16 if pure_aaren else 1
+        if chunk > 1 and not pure_aaren:
             raise ValueError(
-                "the port's StreamingEngine serves all-Aaren models only; "
-                f"pattern {pattern} has other mixers")
+                f"chunk={chunk} needs an all-aaren pattern; rglru/ssd "
+                "carries advance one token at a time (use chunk=1).")
         if n_slots < 1 or chunk < 1:
             raise ValueError(f"need n_slots >= 1 and chunk >= 1; got "
                              f"{n_slots}, {chunk}")
@@ -420,9 +424,11 @@ class StreamingEngine:
         _sample_rows(self.sampler, last, self.seed, zeros, zeros)
         if self.prefix_cache is not None:
             carry = carry_to_host(lm_state_take_slot(states, 0))
-            lm_state_put_slot(states, carry_to_device(carry, self.device),
-                              torch.zeros(self.n_slots, dtype=torch.bool,
-                                          device=self.device))
+            lm_state_put_slot(
+                states, carry_to_device(carry, self.device,
+                                        self._init_states),
+                torch.zeros(self.n_slots, dtype=torch.bool,
+                            device=self.device))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
@@ -787,11 +793,11 @@ class StreamingEngine:
             )
 
         states = snap["tree"]["states"]
-        if torch.is_tensor(states[0][0]):
-            self.states = [ScanState(*(x.to(self.device) for x in st))
-                           for st in states]
+        if torch.is_tensor(tree_leaves(states)[0]):
+            self.states = tree_map(lambda x: x.to(self.device), states)
         else:
-            self.states = carry_to_device(states, self.device)
+            self.states = carry_to_device(states, self.device,
+                                          self._init_states)
         self.seed = int(snap["tree"]["seed"])
         self.active = [_slot(m) for m in meta["active"]]
         self.queue = [
@@ -837,12 +843,13 @@ class StreamingEngine:
 
     def load(self, directory: str, step: int | None = None) -> int:
         """Restore from :meth:`save`, falling back past corrupt steps.  The
-        carries are copied into freshly allocated tensors on the engine's
-        device.  Returns the step the engine was restored from."""
+        carries are read into host arrays (the f32 layout :meth:`snapshot`
+        writes) and copied to the engine's device in each leaf's dtype.
+        Returns the step the engine was restored from."""
         from repro_torch.checkpoint import restore_checkpoint
         template = {
-            "states": lm_state_init(self.api.cfg, self.n_slots,
-                                    device=self.device),
+            "states": carry_to_host(lm_state_init(self.api.cfg, self.n_slots,
+                                                  device="cpu")),
             "seed": np.asarray(self.seed, np.int64),
         }
         tree, step_restored, extra = restore_checkpoint(
@@ -949,7 +956,8 @@ class StreamingEngine:
         mask = torch.zeros(self.n_slots, dtype=torch.bool)
         mask[i] = True
         self.states = lm_state_put_slot(
-            self.states, carry_to_device(carry, self.device),
+            self.states,
+            carry_to_device(carry, self.device, self._init_states),
             mask.to(self.device))
 
     def _admit(self) -> None:

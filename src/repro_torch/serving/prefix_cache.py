@@ -1,11 +1,12 @@
 """Prefix-state cache — port of ``repro.serving.prefix_cache``.
 
-A whole prompt prefix compresses to a per-layer ``(m, u, w)`` carry of
-O(layers · heads) floats (the paper's O(1)-state claim): where a paged-KV
-server needs a block allocator and O(tokens) of device memory per cached
-prefix, an Aaren prefix is a list of small host arrays — 401,408 B at the
-full width of ``phi3-mini-3.8b`` (32 layers x 32 heads x (96 + 2) f32),
-whatever the prefix's length.
+A whole prompt prefix compresses to a per-layer carry of O(layers · heads)
+floats (the paper's O(1)-state claim) — Aaren's ``(m, u, w)``, and in a
+hybrid model RG-LRU's ``{"h", "conv"}`` beside it: where a paged-KV server
+needs a block allocator and O(tokens) of device memory per cached prefix,
+such a prefix is a list of small host arrays — 401,408 B at the full width
+of ``phi3-mini-3.8b`` (32 layers x 32 heads x (96 + 2) f32), whatever the
+prefix's length.
 
 Keying, as the JAX package's:
 
@@ -27,8 +28,8 @@ Persistence: :meth:`save` / :meth:`load` go through the checkpoint layer,
 with the JAX package's ``extra["prefix_cache"]`` schema, and ``load``
 walks past corrupt steps.
 
-The cache holds **host** numpy carries (lists of ``ScanState``, a size-1
-batch axis on every leaf); the engine copies one to the device when it
+The cache holds **host** numpy carries (one state a layer — a
+``ScanState`` or an RG-LRU dict — with a size-1 batch axis on every leaf); the engine copies one to the device when it
 writes it into a slot.  One cache may serve every replica of a
 ``ReplicatedRouter``, whose engines step on worker threads, so every
 method takes the cache's lock.
@@ -43,10 +44,9 @@ from typing import Any
 
 import numpy as np
 
-from repro_torch.core.scan_attention import ScanState
 from repro_torch.obs import events as obs_events
 from repro_torch.obs import metrics as obs_metrics
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 #: rolling polynomial hash parameters (the JAX package's: a Mersenne-prime
 #: modulus keeps the Python-int arithmetic exact; correctness never
@@ -79,8 +79,8 @@ def grid_hashes(tokens: np.ndarray, chunk: int) -> dict[int, int]:
 
 
 def _host_carry(carry: list) -> list:
-    """A carry (a list of ``ScanState``, one a layer) with numpy leaves."""
-    return [ScanState(*(np.asarray(x) for x in st)) for st in carry]
+    """A carry (one state a layer) with numpy leaves."""
+    return tree_map(np.asarray, carry)
 
 
 def carry_bytes(carry: Any) -> int:

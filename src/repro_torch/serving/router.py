@@ -148,7 +148,7 @@ class ReplicatedRouter:
     """
 
     def __init__(self, api, params, *, n_replicas: int = 2,
-                 n_slots: int = 4, chunk: int = 16,
+                 n_slots: int = 4, chunk: int | None = None,
                  sampler: Callable = greedy_sampler,
                  seed: int = 0,
                  policy="least-occupancy",

@@ -20,11 +20,16 @@ def tree_leaves(tree, is_leaf=None) -> list:
     return [tree]
 
 
-def tree_map(fn, tree):
-    """``fn`` over the leaves of ``tree``, in a tree of the same structure;
-    tuples come back as lists."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+def tree_map(fn, *trees):
+    """``fn`` over the matching leaves of one or more trees of one
+    structure, in a tree of that structure: dicts, lists, tuples and named
+    tuples (an Aaren ``ScanState``) keep their type."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        out = [tree_map(fn, *xs) for xs in zip(*trees)]
+        if isinstance(first, list):
+            return out
+        return type(first)(*out) if hasattr(first, "_fields") else tuple(out)
+    return fn(*trees)

@@ -36,14 +36,21 @@ CONFIGS = {
 }
 
 
+NEW_CONFIGS = ("recurrentgemma-9b", "gemma3-27b", "llama3-405b",
+               "minitron-8b")
+
+
 @pytest.mark.parametrize("make", [
     lambda get, smoke: get("phi3-mini-3.8b"),
     lambda get, smoke: get("aaren-paper"),
     lambda get, smoke: smoke("phi3-mini-3.8b"),
     lambda get, smoke: smoke("aaren-paper"),
     lambda get, smoke: smoke("phi3-mini-3.8b", n_layers=2, vocab=64),
-], ids=["phi3", "aaren-paper", "phi3-smoke", "aaren-paper-smoke",
-        "phi3-smoke-override"])
+] + [lambda get, smoke, a=a: get(a) for a in NEW_CONFIGS]
+  + [lambda get, smoke, a=a: smoke(a) for a in NEW_CONFIGS],
+    ids=["phi3", "aaren-paper", "phi3-smoke", "aaren-paper-smoke",
+         "phi3-smoke-override"] + list(NEW_CONFIGS)
+    + [f"{a}-smoke" for a in NEW_CONFIGS])
 def test_config_copies_match_jax(make):
     """The port keeps copies of the configs: drift must fail loudly."""
     port = dataclasses.asdict(make(get_config, smoke_config))
@@ -229,6 +236,8 @@ def test_entry_points_refuse_a_missing_card():
 
 
 def test_unsupported_blocks_raise():
-    cfg = smoke_config("phi3-mini-3.8b", pattern=("rglru",))
-    with pytest.raises(NotImplementedError, match="aaren"):
+    """A mixer not yet ported raises, naming the ROADMAP item that brings
+    it (RG-LRU is ported: tests/test_torch_hybrid.py)."""
+    cfg = smoke_config("phi3-mini-3.8b", pattern=("ssd",))
+    with pytest.raises(NotImplementedError, match="A10b"):
         build(cfg).init(0, device="cpu")

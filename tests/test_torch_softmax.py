@@ -173,11 +173,27 @@ def test_kv_cache_decode_attention_matches_jax(window):
 # ---------------------------------------------------------------------------
 
 
+def _oldest_first(states, n):
+    """The port keeps a trailing-window ring as softmax_step reads it
+    (position j in slot j mod capacity); the JAX package keeps it oldest
+    first (ROADMAP queue C).  The port's rings after an N-token prefill,
+    rotated oldest first."""
+    out = []
+    for st in states:
+        c = st["k"].shape[1]
+        if c < n:
+            st = dict(st, k=st["k"].roll(-(n % c), 1),
+                      v=st["v"].roll(-(n % c), 1))
+        out.append(st)
+    return out
+
+
 @pytest.mark.parametrize("cache_len", [None, 20, 5],
                          ids=["cache_N", "cache_20", "ring_5"])
 def test_logits_and_caches_match_jax(model, cache_len):
     """lm_apply(collect_state=True): logits, and the KV caches of every
-    layer — full (cache_len >= N) or the trailing ring (cache_len < N)."""
+    layer — full (cache_len >= N) or the trailing ring (cache_len < N),
+    compared oldest first."""
     _, jcfg, _, jparams, cfg, _, params = model
     toks = _tokens(cfg.vocab, 2, 13)
     jlogits, jstates, _ = jlm.lm_apply(jcfg, jparams, jnp.asarray(toks),
@@ -186,7 +202,7 @@ def test_logits_and_caches_match_jax(model, cache_len):
     logits, states = lm.lm_apply(cfg, params, torch.from_numpy(toks),
                                  collect_state=True, cache_len=cache_len)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
-    _states_close(states, jstates, cfg)
+    _states_close(_oldest_first(states, 13), jstates, cfg)
 
 
 @pytest.mark.parametrize("ragged", [False, True], ids=["full", "ragged"])
@@ -334,16 +350,33 @@ def test_generate_greedy_matches_jax(model, ragged):
     """Greedy tokens identical to the JAX generate, plain and with ragged
     right-padded prompts (true positions in RoPE, the padded gap masked).
     The local config's ragged case keeps P <= window (its ring needs that);
-    its plain case has P > window, a trailing-window ring."""
-    name, _, japi, jparams, cfg, api, params = model
+    its plain case has P > window, a trailing-window ring, whose decode the
+    JAX generate misreads (ROADMAP queue C): there the tokens equal greedy
+    decoding through the JAX package's full forward."""
+    name, jcfg, japi, jparams, cfg, api, params = model
     p = 6 if (ragged and name == "local") else 11
     prompts = _tokens(cfg.vocab, 3, p, seed=5)
     lens = np.asarray([p, 4, 1], np.int32) if ragged else None
     for i, ln in enumerate(lens if ragged else []):
         prompts[i, ln:] = 0
-    want, _ = jax_generate(japi, jparams, jnp.asarray(prompts), 6,
-                           prompt_lengths=None if lens is None else
-                           jnp.asarray(lens))
+    if name == "local" and not ragged:
+        # Causal: position t's logits read tokens <= t only, so one
+        # fixed-shape forward a token serves (the tail is zeros).
+        forward = jax.jit(lambda w, t: jlm.lm_apply(jcfg, w, t)[0])
+        seq = np.zeros((3, p + 5), np.int32)
+        seq[:, :p] = prompts
+        want = []
+        for t in range(6):
+            nxt = np.asarray(forward(jparams, jnp.asarray(seq))
+                             [:, p - 1 + t]).argmax(-1)
+            want.append(nxt)
+            if t < 5:
+                seq[:, p + t] = nxt
+        want = np.stack(want, axis=1)
+    else:
+        want, _ = jax_generate(japi, jparams, jnp.asarray(prompts), 6,
+                               prompt_lengths=None if lens is None else
+                               jnp.asarray(lens))
     got, states = generate(api, params, prompts, 6, prompt_lengths=lens)
     assert got.tolist() == np.asarray(want).tolist()
     assert int(states[0]["index"]) == p + 5
