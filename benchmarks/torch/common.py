@@ -111,7 +111,7 @@ def backbone_apply(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """x: (B, N, in_dim) -> (B, N, out_dim); a causal sequence model."""
     h = x @ p["proj_in"]
     for bp in p["blocks"]:
-        h, _ = blocks.block_sequence(bp, h, _sig(cfg), cfg)
+        h, _, _ = blocks.block_sequence(bp, h, _sig(cfg), cfg)
     h = apply_norm(p["norm"], h, cfg.norm)
     return h @ p["head"]
 

@@ -3,8 +3,9 @@
 softmax baseline, each also on packed documents, the serving tier (prefix
 cache, drain, crash failover, quarantine, snapshots), group remat,
 fault-tolerant training with checkpoints and instrumented serving, the four
-paper-table proxies, the examples, and the hybrid recurrentgemma-9b with
-the dense configs of its slice — on one CUDA card and check them.
+paper-table proxies, the examples, the hybrid recurrentgemma-9b with the
+dense configs of its slice, and the SSM mamba2-1.3b and the MoE
+qwen3-moe-30b-a3b with dbrx-132b — on one CUDA card and check them.
 
 Run from the root of the repository, on a machine with one NVIDIA H100:
 
@@ -143,13 +144,15 @@ own error):
    step median beside phase 4b's, the guard check's own cost and a
    profiler view of one more guarded step with tracing on (the
    ``train.step`` and ``aaren_scan_*.cuda`` spans).  The checkpointed runs
-   keep the full width and 16 of the 32 layers: the card machine ends a
-   command that has written 45 GiB to its disk, and a 32-layer checkpoint
-   is 35.6 GiB.  (a16) The same 6 steps as the reference; (b) the same
-   load with a real SIGTERM after the 3rd draw drains into one sync
-   checkpoint at step 3; (c) a fresh state resumes from it to step 6 with
-   the losses and grad norms of steps 3-5 and the final parameters
-   bit-equal to (a16), both checkpoints passing ``verify_checkpoint``.
+   keep the full width and 8 of the 32 layers: the card machine ends a
+   command that has written 45 GiB to its disk, a 32-layer checkpoint is
+   35.6 GiB, and the script's time limit leaves room for two saves, a
+   restore and two crc passes of ~11 GB.  (a8) The same 6 steps as the
+   reference; (b) the same load with a real SIGTERM after the 3rd draw
+   drains into one sync checkpoint at step 3; (c) a fresh state resumes
+   from it to step 6 with the losses and grad norms of steps 3-5 and the
+   final parameters bit-equal to (a8), both checkpoints passing
+   ``verify_checkpoint``.
    Counts zeroed before (a) and read after (c): 2 x layers B1 and layers
    B2 launches for each step, skipped ones included.  Then the
    checkpoint's bytes, the save, restore and crc pass in s and GB/s with
@@ -206,6 +209,42 @@ own error):
    B3–B5 at training (H = 16, G = 1, N = 4096, d = 256, window 2048), B3
    at the prefill (B = 2, N = 2304), and B3–B5 at gemma3-27b's local shape
    (H = 32, G = 16, d = 128, window 1024, N = 4096, random inputs).
+4m. The SSM and MoE families of ROADMAP A10b and A10c, each model freed
+   before the next is built, with the peak memory of each part.  (h) The
+   smoke configs of ``mamba2-1.3b``, ``qwen3-moe-30b-a3b`` and
+   ``dbrx-132b``, in each mode they have, f32: greedy tokens on the card
+   equal to the CPU (the streaming engine at its default chunk, and
+   ``generate``), the loss, its MoE metrics and every gradient within
+   phase 3's bars, dbrx's AdaFactor steps.  ``mamba2-1.3b`` as registered
+   (bf16, 48 SSD layers with no MLP, d_model 2048, d_inner 4096, 64 heads
+   x 64, state 128, vocab 50280, tied, 1,343,740,928 parameters, seed 0):
+   (a) phase 4's 16 requests at 8 slots and chunk 1, counts zeroed just
+   before and read just after (no kernel launched, no plain version
+   reached), tick median, tok/s, the decode state a slot (101,916,672 B),
+   a profile of 5 ticks, a drain after 80 ticks and a snapshot 80 later,
+   bit-equal; (b) ``generate`` of B = 2, P = 768 (three SSD chunks) and 256
+   new tokens against the full forward over the 1024 tokens (logits within
+   ``MB_GEN_RTOL``, a token differs from its argmax only where the two
+   paths' disagreement allows, and decode no farther from the same
+   weights' f32 forward than ``MB_GEN_EXACT`` times the bf16 forward, the
+   residual stream's bf16 drift printed by layer), then the f32 control at 6 layers (logits within ``MB_F32_RTOL``, every
+   token the forward's argmax), also from 1- and 2-token prompts; (c) 48
+   layers trained on 4 x 1024 tokens, AdamW, ``remat="block"``, 1 + 2
+   steps, no kernel launched.  ``qwen3-moe-30b-a3b`` as registered (bf16,
+   48 layers, d_model 2048, 32 x 128 heads, 4 kv heads, 128 experts top-8
+   of width 768, capacity factor 1.25, vocab 151936, untied, seed 0): (d)
+   Aaren serving of phase 4's 16 requests at 8 slots and chunk 16 (48 B1
+   launches a tick, B1's inputs of one tick against its plain version, the
+   decode state a slot 798,720 B), a drain and a snapshot bit-equal; (e)
+   softmax ``generate`` of B = 4, P = 128, 8 new (48 B3 launches: one
+   prefill) with the prefill's ``dropped_frac``, then the f32 control at 4
+   layers with capacity factor 16 (nothing dropped; logits within
+   ``MOE_F32_RTOL``, every token the forward's argmax); (f) training at
+   full width and 4 layers, both modes, 4 x 1024 tokens, 1 + 2 steps (a
+   step: Aaren 8 B1 + 4 B2, softmax 8 B3 + 4 B4 + 4 B5), each step's
+   ``load_balance_loss`` and ``dropped_frac``, MFU on the active
+   parameters; (g) B1–B5 at qwen3's shapes against their plain versions,
+   with device time, bound and SDPA (``enable_gqa``) beside B3–B5.
 5. Result lines: the kernels' JSON, the card, and the contract line.
 """
 
@@ -2591,9 +2630,12 @@ def phase4g_group_remat(torch, np, card: str, cfg, block: dict) -> dict:
 FT_STEPS, FT_NAN_AT, FT_PREEMPT_AFTER = 6, 2, 3
 # The card machine ends a command once it has written 45 GiB to its disk,
 # deleted files included, and one checkpoint of the 32-layer model is
-# 35.6 GiB: the checkpointed runs of phase 4j keep the full width and 16 of
-# the 32 layers (18.7 GiB a checkpoint, two in one run).
-FT_CKPT_LAYERS = 16
+# 35.6 GiB: the checkpointed runs of phase 4j keep the full width and 8 of
+# the 32 layers, two checkpoints in one run.  At 16 layers (18.7 GiB each)
+# their saves, restore and crc passes took ~196 s of a whole run that
+# reached its result lines at 1021.5 s of its 1200 s limit (NVIDIA H100
+# 80GB HBM3, 700 W).
+FT_CKPT_LAYERS = 8
 
 
 def _bit_checksums(torch, tree) -> list:
@@ -2637,10 +2679,10 @@ def phase4j_fault_tolerant_training(torch, np, card: str, cfg, block: dict):
     beside phase 4b's unguarded one (``block``), the guard check's own cost
     and a profiler view of one more guarded step with tracing on.  Then at
     the full width with ``FT_CKPT_LAYERS`` layers (the disk's write limit):
-    (a16) the same 6 steps as the reference; (b) the same load with a real
+    (a8) the same 6 steps as the reference; (b) the same load with a real
     SIGTERM after the 3rd draw drains into one sync checkpoint at step 3;
     (c) a fresh state and loop resume from it and run to step 6, bit-equal
-    to (a16).  Counts are zeroed before (a) and read after (c): 2 x layers
+    to (a8).  Counts are zeroed before (a) and read after (c): 2 x layers
     B1 and layers B2 launches for every step.  Then the checkpoint's bytes,
     the save, restore and crc-pass rates and the peak memory.  Returns
     {kernel: launches}."""
@@ -2858,8 +2900,8 @@ def phase4j_fault_tolerant_training(torch, np, card: str, cfg, block: dict):
         _require(free_disk > 2.05 * want_disk, "the disk cannot hold two "
                  "checkpoints")
 
-        # (a16) The reference for the resume.
-        res, hist_r = guarded_run(step_fn, fresh_state(), "a16")
+        # (a8) The reference for the resume.
+        res, hist_r = guarded_run(step_fn, fresh_state(), "a8")
         final_r = _bit_checksums(torch, res.state.params)
         del res
         free()
@@ -2904,11 +2946,11 @@ def phase4j_fault_tolerant_training(torch, np, card: str, cfg, block: dict):
         print(f"  (c) resumed from step {res.resumed_from}: losses and grad "
               f"norms of steps {FT_PREEMPT_AFTER}-{FT_STEPS - 1} and the "
               f"final parameters ({len(final_c)} leaf checksums) bit-equal "
-              "to (a16)")
+              "to (a8)")
         del res
         free()
         big = FT_STEPS + 1                       # (a) and its traced step
-        small = FT_STEPS + FT_STEPS              # (a16), (b) and (c)
+        small = FT_STEPS + FT_STEPS              # (a8), (b) and (c)
         want = {"aaren_scan": 2 * (cfg.n_layers * big
                                    + ckpt_cfg.n_layers * small),
                 "aaren_scan_bwd": (cfg.n_layers * big
@@ -3178,12 +3220,339 @@ def phase4i_examples(torch, np, card: str) -> None:
                          f"train_lm {mode}: non-finite loss")
 
 
+# Phases 4l and 4m: a drain after EVENT_TICK engine ticks and a snapshot
+# EVENT_TICK ticks later; LONG_WARM + LONG_MEASURED steps of each training.
+EVENT_TICK = 80
+LONG_WARM, LONG_MEASURED = 1, 2
+
+
+def _small_configs(torch, np, archs, seed: int) -> None:
+    """The smoke configs of ``archs``, in each mode they have (an SSM model
+    has no attention, so one), f32: greedy tokens on the card (kernels)
+    equal to the CPU's (plain versions) — the streaming engine at its
+    default chunk where the model streams (Aaren mode), and ``generate``
+    in every mode (past the window where the model has one) — the loss,
+    its MoE metrics and every gradient within phase 3's bars, and for a
+    model whose optimizer is AdaFactor (dbrx, beside its LayerNorm) three
+    steps within phase 3's step bar.  Each mode's kernels must launch, and
+    no others: none for an SSM model.  The prompts are made from ``seed``
+    and the training batch from ``seed + 1``."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.factory import build
+    from repro_torch.serving.engine import StreamingEngine, generate
+    from repro_torch.train.optim import make_optimizer, warmup_cosine
+    from repro_torch.train.state import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    counters = _counts()
+    for arch in archs:
+        ssm = smoke_config(arch).family == "ssm"
+        for mode in (("aaren",) if ssm else ("aaren", "softmax")):
+            small = build(smoke_config(arch, attn_mode=mode))
+            cpu_params = small.init(0, device="cpu")
+            prompts = np.random.default_rng(seed).integers(
+                0, small.cfg.vocab, (3, 12))
+            batch = np.random.default_rng(seed + 1).integers(
+                0, small.cfg.vocab, (2, 24))
+            before = {k: c.n_launches for k, c in counters.items()}
+            toks, gen, metrics, grads, steps = {}, {}, {}, {}, {}
+            for dev in ("cpu", "cuda"):
+                params = _to(cpu_params, dev)
+                if mode == "aaren":
+                    eng = StreamingEngine(small, params, n_slots=2)
+                    rids = [eng.submit(p[:n], 5)
+                            for p, n in zip(prompts, (12, 5, 1))]
+                    res = eng.run()
+                    toks[dev] = [res[r] for r in rids]
+                gen[dev] = generate(small, params, prompts, 5)[0].tolist()
+                leaves = tree_leaves(params)
+                for p in leaves:
+                    p.requires_grad_(True)
+                loss, m = small.loss(params, {
+                    "tokens": torch.from_numpy(batch).to(dev)})
+                grads[dev] = torch.autograd.grad(loss, leaves)
+                metrics[dev] = {k: float(v) for k, v in m.items()}
+                if small.cfg.optimizer == "adafactor":
+                    opt = make_optimizer("adafactor",
+                                         warmup_cosine(3e-3, 1, 3))
+                    state = init_train_state(_to(cpu_params, dev), opt)
+                    step = make_train_step(small.loss, opt)
+                    steps[dev] = []
+                    for _ in range(3):
+                        state, m = step(state, {"tokens": batch})
+                        steps[dev].append(m["loss"].item())
+            launched = {k: c.n_launches - before[k]
+                        for k, c in counters.items()}
+            kernels = (() if ssm else
+                       ("aaren_scan", "aaren_scan_bwd") if mode == "aaren"
+                       else ("flash_attention", "flash_bwd_dq",
+                             "flash_bwd_dkv"))
+            what = f"small {arch} {mode}"
+            _require(all((launched[k] > 0) == (k in kernels)
+                         for k in launched),
+                     f"{what}: launches {launched}, want {kernels} only")
+            _require(toks.get("cpu") == toks.get("cuda"), f"{what}: engine "
+                     f"tokens on the card {toks.get('cuda')} != on the CPU "
+                     f"{toks.get('cpu')}")
+            _require(gen["cpu"] == gen["cuda"], f"{what}: generate's tokens"
+                     f" on the card {gen['cuda']} != on the CPU {gen['cpu']}")
+            rel = max(abs(metrics["cuda"][k] - metrics["cpu"][k])
+                      / max(abs(metrics["cpu"][k]), 1e-6)
+                      for k in metrics["cpu"])
+            _require(rel <= 1e-5, f"{what}: loss metrics on the card "
+                     f"{metrics['cuda']} != on the CPU {metrics['cpu']}")
+            gerr = 0.0
+            for a, b in zip(grads["cuda"], grads["cpu"]):
+                scale = b.abs().max().item()
+                err = (a.cpu() - b).abs().max().item()
+                _require(err <= TOL["rtol"] * scale + 1e-6, f"{what}: a "
+                         f"gradient differs by {err:.3e} (max |CPU| "
+                         f"{scale:.3e}) between the card and the CPU")
+                gerr = max(gerr, err / max(scale, 1e-6))
+            srel = ""
+            if steps:
+                s = max(abs(a - b) / abs(b)
+                        for a, b in zip(steps["cuda"], steps["cpu"]))
+                _require(s <= 1e-4, f"{what}: AdaFactor step losses on the "
+                         f"card {steps['cuda']} != on the CPU {steps['cpu']}")
+                srel = f"; 3 AdaFactor step losses within {s:.2e} relative"
+            print(f"  {what}: greedy tokens on the card == on the CPU "
+                  f"({'engine and ' if toks else ''}generate); loss "
+                  f"metrics |card - CPU| / CPU <= {rel:.2e}"
+                  + (f" (dropped_frac {metrics['cpu']['dropped_frac']:.3f})"
+                     if small.cfg.n_experts else "") + "; "
+                  f"{len(grads['cpu'])} gradients within {gerr:.2e} of max "
+                  f"|CPU|{srel}; launches "
+                  + (", ".join(f"{k} {launched[k]}" for k in kernels)
+                     or "none"))
+
+
+def _serve_full(torch, np, card, api, params, label, n_scan, state_bytes):
+    """Phase 4's ``REQUESTS`` prompts (32-256 tokens, seed 0) through the
+    ``StreamingEngine`` at ``SLOTS`` slots and the model's default chunk,
+    ``MAX_NEW`` new tokens each, greedy.  B1's inputs of one tick are held
+    against its plain version (when the model has ``n_scan`` Aaren layers);
+    then every count is zeroed just before the run and read just after: B1
+    ``n_scan`` a tick, nothing else, and no plain version reached with a
+    CUDA tensor.  Prints tick median, tok/s and the decode state a slot
+    (which must be ``state_bytes``), then a profile of 5 ticks; then a drain
+    (export + inject) after ``EVENT_TICK`` ticks and a snapshot restored
+    into a fresh engine ``EVENT_TICK`` ticks later, every request's
+    tokens bit-equal to the undisturbed run.  Returns (B1 launches, B1's
+    captured serving inputs or None, max |err| of B1 on them)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import StreamingEngine, decode_state_bytes
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 257, REQUESTS)
+    reqs = [rng.integers(0, api.cfg.vocab, n) for n in lens]
+    captured, err = [], 0.0
+    if n_scan:          # B1's inputs of one real tick (not counted)
+        real_scan = ops.aaren_scan
+
+        def capture(*args, **kw):
+            captured.append([a.clone() for a in args])
+            return real_scan(*args, **kw)
+
+        cap = StreamingEngine(api, params, n_slots=SLOTS)
+        for p in reqs[:SLOTS]:
+            cap.submit(p, MAX_NEW)
+        ops.aaren_scan = capture
+        try:
+            cap.step()
+        finally:
+            ops.aaren_scan = real_scan
+        _require(len(captured) == n_scan,
+                 f"captured {len(captured)} scans, want {n_scan}")
+        for i in (0, n_scan - 1):
+            err = max(err, _compare_scan(
+                torch, captured[i], f"{label} serving tick, Aaren layer {i}"))
+        del cap
+
+    eng = StreamingEngine(api, params, n_slots=SLOTS)
+    print(f"  engine warm-up {eng.warmup():.2f} s")
+    counters = _counts()
+    undo = _forbid_plain_on_card()
+    # The main path: counts from zero, read right after.
+    for c in counters.values():
+        c.n_launches = 0
+    try:
+        rids = [eng.submit(p, MAX_NEW) for p in reqs]
+        tick_s = []
+        ts = time.perf_counter()
+        while eng.queue or any(s is not None for s in eng.active):
+            t1 = time.perf_counter()
+            eng.step()
+            tick_s.append(time.perf_counter() - t1)
+        serve_s = time.perf_counter() - ts
+    finally:
+        undo()
+    launches = {k: c.n_launches for k, c in counters.items()}
+    ticks = len(tick_s)
+    _require(not eng.errors and eng.n_quarantined == 0,
+             f"errors {eng.errors}, quarantined {eng.n_quarantined}")
+    _require(all(len(eng.finished[r]) == MAX_NEW for r in rids),
+             "a request did not return max_new tokens")
+    want = dict.fromkeys(launches, 0)
+    want["aaren_scan"] = n_scan * ticks
+    _require(launches == want, f"launches {launches}, want {want}")
+    ref = [eng.finished[r] for r in rids]
+    served = sum(map(len, ref))
+    per_slot = decode_state_bytes(eng.states) // SLOTS
+    tick_ms = statistics.median(tick_s) * 1e3
+    print(f"  {label}: served {len(rids)} requests / {served} tokens in "
+          f"{ticks} ticks (chunk {eng.chunk}), {serve_s:.3f} s: tick median "
+          f"{tick_ms:.3f} ms, {served / serve_s:.1f} tok/s; B1 launches "
+          f"{launches['aaren_scan']} = {n_scan} x {ticks}, no other kernel "
+          f"and no plain version; decode state {per_slot} B a slot  [{card}]")
+    _require(per_slot == state_bytes,
+             f"decode state {per_slot} B a slot, want {state_bytes}")
+    for p in reqs[:SLOTS]:
+        eng.submit(p, MAX_NEW)
+    eng.step()
+    _print_profile(_device_profile(torch, eng.step, 5), f"{label} tick (5 "
+                   "ticks)", card)
+    eng.run()
+    del eng
+
+    src = StreamingEngine(api, params, n_slots=SLOTS)
+    rids = [src.submit(p, MAX_NEW) for p in reqs]
+    for _ in range(EVENT_TICK):
+        src.step()
+    dst = StreamingEngine(api, params, n_slots=SLOTS)
+    tm = time.perf_counter()
+    descs = src.export_requests()
+    for desc in descs:
+        dst.inject_request(desc)
+    torch.cuda.synchronize()
+    move_ms = (time.perf_counter() - tm) * 1e3
+    for _ in range(EVENT_TICK):
+        dst.step()
+    snap = dst.snapshot()
+    fresh = StreamingEngine(api, params, n_slots=SLOTS)
+    fresh.restore(snap)
+    fresh.run()
+    done = {**src.finished, **dst.finished, **fresh.finished}
+    _require([done[r] for r in rids] == ref, f"{label} drain + snapshot: "
+             "tokens differ from the undisturbed run")
+    print(f"  {label}: drain after {EVENT_TICK} ticks: {len(descs)} "
+          f"requests exported + injected in {move_ms:.3f} ms; snapshot "
+          f"{EVENT_TICK} ticks later restored into a fresh engine: every "
+          f"request's tokens bit-equal to the undisturbed run  [{card}]")
+    return launches["aaren_scan"], (captured[0] if captured else None), err
+
+
+def _train_full(torch, np, card, cfg, label, batch, seq_len, want, *,
+                mfu_params=None, mfu_label="MFU"):
+    """``LONG_WARM`` + ``LONG_MEASURED`` steps of ``cfg`` (AdamW, its remat)
+    through ``make_train_step`` and ``run_train_loop`` on
+    ``SyntheticLMIterator`` batches of ``batch`` x ``seq_len`` tokens.
+    Counts zeroed just before and read just after must equal ``want`` a
+    step (every other kernel 0), and no plain version may see a CUDA
+    tensor.  Prints each step's loss and grad norm (and the MoE metrics),
+    the step median, tokens/s, MFU (6 x ``mfu_params``, default every
+    parameter, x tokens over the bf16 peak), peak memory and a profile of
+    one more step.  Returns ({kernel: launches}, the first step's first
+    captured call of each kernel, {"step_ms", "peak"})."""
+    from repro_torch.data.synthetic import SyntheticLMIterator
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build
+    from repro_torch.models.param import count_params
+    from repro_torch.train.loop import LoopConfig, run_train_loop
+    from repro_torch.train.optim import make_optimizer, warmup_cosine
+    from repro_torch.train.state import init_train_state, make_train_step
+
+    _require((cfg.remat, cfg.optimizer) == ("block", "adamw"), str(cfg))
+    api = build(cfg)
+    n_params = count_params(api.specs())
+    steps = LONG_WARM + LONG_MEASURED
+    ti = time.perf_counter()
+    params = api.init(0, device="cuda")
+    opt = make_optimizer(cfg.optimizer, warmup_cosine(3e-4, 1, steps))
+    state = init_train_state(params, opt)
+    step_fn = make_train_step(api.loss, opt, max_grad_norm=1.0)
+    torch.cuda.synchronize()
+    print(f"  {label}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, "
+          f"init {time.perf_counter() - ti:.2f} s: params + AdamW moments "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on card")
+    data = SyntheticLMIterator(vocab=cfg.vocab, seq_len=seq_len, batch=batch,
+                               seed=0)
+    names = ((("aaren_scan", "aaren_scan_bwd") if "aaren_scan" in want
+              else ()) + (("flash_attention", "flash_attention_bwd")
+                          if "flash_attention" in want else ()))
+    reals = {n: getattr(ops, n) for n in names}
+    captured = {}
+
+    def spy(name):
+        def wrapped(*args, **kw):
+            if name not in captured:
+                captured[name] = ([a.clone() for a in args], dict(kw))
+            return reals[name](*args, **kw)
+        return wrapped
+
+    losses, finite = [], {"ok": True}
+
+    def on_log(step, m):
+        finite["ok"] &= bool(np.isfinite(m["loss"])
+                             and np.isfinite(m["grad_norm"]))
+        losses.append(m["loss"])
+        moe = (f" load_balance_loss {m['load_balance_loss']:.4f} "
+               f"dropped_frac {m['dropped_frac']:.4f}"
+               if cfg.n_experts else "")
+        print(f"  step {step}: loss {m['loss']:.4f} grad_norm "
+              f"{m['grad_norm']:.4f}{moe} {m['step_time_s'] * 1e3:.1f} ms")
+
+    counters = _counts()
+    for n in names:
+        setattr(ops, n, spy(n))
+    undo = _forbid_plain_on_card()
+    torch.cuda.reset_peak_memory_stats()
+    # The main path: counts from zero, read right after.
+    for c in counters.values():
+        c.n_launches = 0
+    try:
+        result = run_train_loop(step_fn, state, data,
+                                LoopConfig(total_steps=steps, log_every=1),
+                                on_log=on_log)
+    finally:
+        for n in names:
+            setattr(ops, n, reals[n])
+        undo()
+    launches = {k: c.n_launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    _require(finite["ok"], f"non-finite loss or grad norm: {losses}")
+    _require(result.state.step == steps, f"ran {result.state.step} steps")
+    want = {k: want.get(k, 0) * steps for k in launches}
+    _require(launches == want, f"launches {launches}, want {want}")
+    step_s = [m["step_time_s"] for _, m in result.history[LONG_WARM:]]
+    step_ms = statistics.median(step_s) * 1e3
+    tokens = batch * seq_len
+    mfu = (6 * (mfu_params or n_params) * tokens / (step_ms / 1e3)
+           / BF16_DENSE_FLOPS)
+    print(f"  {label} training {batch} x {seq_len}: step median "
+          f"{step_ms:.3f} ms ({', '.join(f'{s * 1e3:.1f}' for s in step_s)}"
+          f" ms), {tokens / (step_ms / 1e3):.1f} tokens/s, {mfu_label} "
+          f"{mfu:.2%}, peak memory {peak / 2**30:.2f} GiB; launches "
+          + (", ".join(f"{k} {v}" for k, v in launches.items() if v)
+             or "none") + f"  [{card}]")
+    train_state = {"state": result.state}
+    batch_ = next(data)
+
+    def one_step():
+        train_state["state"], _ = step_fn(train_state["state"], batch_)
+
+    _print_profile(_device_profile(torch, one_step, 1),
+                   f"{label} training step", card, top=12)
+    del train_state, result, state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({k: v for k, v in launches.items() if v}, captured,
+            {"step_ms": step_ms, "peak": peak})
+
+
 HYBRID = "recurrentgemma-9b"
-HY_SLOTS, HY_NEW = 8, 32          # phase 4's traffic: REQUESTS prompts
 HY_GEN_B, HY_GEN_P, HY_GEN_NEW = 2, 2304, 16
 HY_TRAIN_LAYERS, HY_TRAIN_N = 12, 4096
-HY_WARM, HY_MEASURED = 1, 2
-HY_EVENT_TICK = 80       # drain after, and snapshot this many ticks later
 # (b): decode's logits against the full forward's, as a fraction of the
 # step's largest logit.  The bf16 38-layer run reads 6.21e-2 (GEMV against
 # GEMM in bf16, the bf16 KV ring against flash's f32-accumulated tiles).
@@ -3209,89 +3578,14 @@ def _n_mixers(cfg, kind: str) -> int:
     return sum(sig[0] == kind for sig in layer_sigs(cfg))
 
 
-def phase4l_small_configs(torch, np) -> None:
-    """(e) The smoke configs of the four A10a architectures, both modes,
-    f32: greedy tokens on the card (kernels) equal to the CPU (plain
-    versions) — the streaming engine at its default chunk in Aaren mode,
-    ``generate`` past the window in softmax mode — and the loss and every
-    gradient within phase 3's bars."""
-    from repro_torch.configs import smoke_config
-    from repro_torch.models.factory import build
-    from repro_torch.serving.engine import StreamingEngine, generate
-    from repro_torch.tree import tree_leaves
-
-    counters = _counts()
-    for arch in SMALL_ARCHS:
-        for mode in ("aaren", "softmax"):
-            small = build(smoke_config(arch, attn_mode=mode))
-            cpu_params = small.init(0, device="cpu")
-            prompts = np.random.default_rng(120).integers(
-                0, small.cfg.vocab, (3, 12))
-            batch = np.random.default_rng(121).integers(
-                0, small.cfg.vocab, (2, 24))
-            before = {k: c.n_launches for k, c in counters.items()}
-            toks, losses, grads = {}, {}, {}
-            for dev in ("cpu", "cuda"):
-                params = _to(cpu_params, dev)
-                if mode == "aaren":
-                    eng = StreamingEngine(small, params, n_slots=2)
-                    rids = [eng.submit(p[:n], 5)
-                            for p, n in zip(prompts, (12, 5, 1))]
-                    res = eng.run()
-                    toks[dev] = [res[r] for r in rids]
-                else:
-                    toks[dev] = generate(small, params, prompts,
-                                         5)[0].tolist()
-                leaves = tree_leaves(params)
-                for p in leaves:
-                    p.requires_grad_(True)
-                loss, _ = small.loss(params, {
-                    "tokens": torch.from_numpy(batch).to(dev)})
-                grads[dev] = torch.autograd.grad(loss, leaves)
-                losses[dev] = loss.item()
-            launched = {k: c.n_launches - before[k]
-                        for k, c in counters.items()}
-            kernels = (("aaren_scan", "aaren_scan_bwd") if mode == "aaren"
-                       else ("flash_attention", "flash_bwd_dq",
-                             "flash_bwd_dkv"))
-            what = f"small {arch} {mode}"
-            _require(all(launched[k] > 0 for k in kernels),
-                     f"{what}: the card path skipped a kernel: {launched}")
-            _require(toks["cpu"] == toks["cuda"], f"{what}: card tokens "
-                     f"{toks['cuda']} != CPU tokens {toks['cpu']}")
-            rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-            _require(rel <= 1e-5, f"{what}: loss on the card "
-                     f"{losses['cuda']} != on the CPU {losses['cpu']}")
-            gerr = 0.0
-            for a, b in zip(grads["cuda"], grads["cpu"]):
-                scale = b.abs().max().item()
-                err = (a.cpu() - b).abs().max().item()
-                _require(err <= TOL["rtol"] * scale + 1e-6, f"{what}: a "
-                         f"gradient differs by {err:.3e} (max |CPU| "
-                         f"{scale:.3e}) between the card and the CPU")
-                gerr = max(gerr, err / max(scale, 1e-6))
-            print(f"  {what}: greedy tokens on the card == on the CPU; loss "
-                  f"|card - CPU| / CPU = {rel:.2e}; {len(grads['cpu'])} "
-                  f"gradients within {gerr:.2e} of max |CPU|; launches "
-                  + ", ".join(f"{k} {launched[k]}" for k in kernels))
-
-
 def phase4l_hybrid_serving(torch, np, card: str):
-    """(a) Aaren-mode serving of the full-width ``recurrentgemma-9b``.
-    Returns (B1 launches, B1's captured serving inputs, max |err| of B1 on
-    them, (api, params))."""
+    """(a) Aaren-mode serving of the full-width ``recurrentgemma-9b``
+    (:func:`_serve_full`, chunk 1).  Returns (B1 launches, B1's captured
+    serving inputs, max |err| of B1 on them, (api, params))."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.aaren_scan import aaren_scan
     from repro_torch.models.factory import build
     from repro_torch.models.param import count_params
-    from repro_torch.serving.engine import (
-        StreamingEngine,
-        decode_state_bytes,
-        generate,
-    )
-    from repro_torch.serving.sampler import greedy_sampler
+    from repro_torch.serving.engine import StreamingEngine
 
     cfg = get_config(HYBRID)
     _require((cfg.family, cfg.attn_mode, cfg.param_dtype, cfg.compute_dtype,
@@ -3310,106 +3604,12 @@ def phase4l_hybrid_serving(torch, np, card: str):
     print(f"  {HYBRID} init {time.perf_counter() - ti:.2f} s: "
           f"{n_params / 1e9:.3f} B params, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on card")
-    rng = np.random.default_rng(0)
-    lens = rng.integers(32, 257, REQUESTS)
-    reqs = [rng.integers(0, cfg.vocab, n) for n in lens]
-
-    # (a) B1's inputs of one real tick (not counted).
-    captured = []
-    real_scan = ops.aaren_scan
-
-    def capture(*args, **kw):
-        captured.append([a.clone() for a in args])
-        return real_scan(*args, **kw)
-
-    cap = StreamingEngine(api, params, n_slots=HY_SLOTS)
-    _require(cap.chunk == 1, f"a hybrid engine's chunk is {cap.chunk}")
-    for p in reqs[:HY_SLOTS]:
-        cap.submit(p, HY_NEW)
-    ops.aaren_scan = capture
-    try:
-        cap.step()
-    finally:
-        ops.aaren_scan = real_scan
-    _require(len(captured) == n_aaren,
-             f"captured {len(captured)} scans, want {n_aaren}")
-    err = 0.0
-    for i in (0, n_aaren - 1):
-        err = max(err, _compare_scan(torch, captured[i],
-                                     f"hybrid serving tick, Aaren layer {i}"))
-    del cap
-
-    eng = StreamingEngine(api, params, n_slots=HY_SLOTS)
-    print(f"  engine warm-up {eng.warmup():.2f} s")
-    undo = _forbid_plain_on_card()
-    # The main path: counts from zero, read right after.
-    aaren_scan.n_launches = 0
-    try:
-        rids = [eng.submit(p, HY_NEW) for p in reqs]
-        tick_s = []
-        ts = time.perf_counter()
-        while eng.queue or any(s is not None for s in eng.active):
-            t1 = time.perf_counter()
-            eng.step()
-            tick_s.append(time.perf_counter() - t1)
-        serve_s = time.perf_counter() - ts
-    finally:
-        undo()
-    launches = aaren_scan.n_launches
-    ticks = len(tick_s)
-    _require(not eng.errors and eng.n_quarantined == 0,
-             f"errors {eng.errors}, quarantined {eng.n_quarantined}")
-    _require(all(len(eng.finished[r]) == HY_NEW for r in rids),
-             "a request did not return max_new tokens")
-    _require(launches == n_aaren * ticks,
-             f"B1 launched {launches} times, want {n_aaren} x {ticks}")
-    ref = [eng.finished[r] for r in rids]
-    served = sum(map(len, ref))
-    per_slot = decode_state_bytes(eng.states) // HY_SLOTS
-    tick_ms = statistics.median(tick_s) * 1e3
-    print(f"  (a) served {len(rids)} requests / {served} tokens in {ticks} "
-          f"ticks (chunk 1), {serve_s:.3f} s: tick median {tick_ms:.3f} ms,"
-          f" {served / serve_s:.1f} tok/s; B1 launches {launches} = "
-          f"{n_aaren} x {ticks}; decode state {per_slot} B a slot  [{card}]")
-    _require(per_slot == 26 * 40960 + 12 * 16512,
-             f"decode state {per_slot} B a slot, want 1,263,104")
-    for p in reqs[:HY_SLOTS]:
-        eng.submit(p, HY_NEW)
-    eng.step()
-    _print_profile(_device_profile(torch, eng.step, 5), "hybrid tick (5 "
-                   "ticks)", card)
-    eng.run()
-    del eng
-
-    # A drain (export + inject) after HY_EVENT_TICK ticks, then a snapshot
-    # restored into a fresh engine HY_EVENT_TICK ticks later: every
-    # request's tokens bit-equal to the undisturbed run.
-    src = StreamingEngine(api, params, n_slots=HY_SLOTS)
-    rids = [src.submit(p, HY_NEW) for p in reqs]
-    for _ in range(HY_EVENT_TICK):
-        src.step()
-    dst = StreamingEngine(api, params, n_slots=HY_SLOTS)
-    tm = time.perf_counter()
-    descs = src.export_requests()
-    for desc in descs:
-        dst.inject_request(desc)
-    torch.cuda.synchronize()
-    move_ms = (time.perf_counter() - tm) * 1e3
-    for _ in range(HY_EVENT_TICK):
-        dst.step()
-    snap = dst.snapshot()
-    fresh = StreamingEngine(api, params, n_slots=HY_SLOTS)
-    fresh.restore(snap)
-    fresh.run()
-    done = {**src.finished, **fresh.finished}
-    _require([done[r] for r in rids] == ref, "hybrid drain + snapshot: "
-             "tokens differ from the undisturbed run")
-    print(f"  (a) drain after {HY_EVENT_TICK} ticks: {len(descs)} requests "
-          f"exported + injected in {move_ms:.3f} ms; snapshot "
-          f"{HY_EVENT_TICK} ticks later restored into a fresh engine: every "
-          f"request's tokens bit-equal to the undisturbed run  [{card}]")
-    del src, dst, fresh, snap
-    return launches, captured[0], err, (api, params)
+    chunk = StreamingEngine(api, params, n_slots=SLOTS).chunk
+    _require(chunk == 1, f"a hybrid engine's chunk is {chunk}")
+    launches, b1_args, err = _serve_full(
+        torch, np, card, api, params, "hybrid (a)", n_aaren,
+        26 * 40960 + 12 * 16512)
+    return launches, b1_args, err, (api, params)
 
 
 def _recording_greedy(steps: list):
@@ -3426,7 +3626,7 @@ def _recording_greedy(steps: list):
 
 
 def _decode_against_forward(torch, cfg, params, prompts, toks, steps, *,
-                            rings: bool = False):
+                            rings: bool = False, with_last: bool = False):
     """``generate``'s per-step logits (``steps``, one (B, V) a step) against
     the full forward over prompt + generated tokens.  Returns, each (B,
     new) on the host: |decode - forward| over the vocabulary as a fraction
@@ -3434,17 +3634,19 @@ def _decode_against_forward(torch, cfg, params, prompts, toks, steps, *,
     whether the forward's top-2 margin is within twice that disagreement
     (the least a flip needs), the margin and the disagreement; and, with
     ``rings``, the forward's per-layer states, each window layer's KV ring
-    laid out as ``generate`` keeps it."""
+    laid out as ``generate`` keeps it.  ``with_last``: the forward also
+    runs over the last generated token (its logits unused), for a model that
+    takes only some lengths (the chunked SSD: up to 256 or a multiple)."""
     from repro_torch.models import lm
 
     dev = steps[0].device
     toks = toks.to(dev)
-    seq = torch.cat([torch.as_tensor(prompts, device=dev), toks[:, :-1]],
-                    dim=1)
+    seq = torch.cat([torch.as_tensor(prompts, device=dev),
+                     toks if with_last else toks[:, :-1]], dim=1)
     with torch.inference_mode():
         full, states = lm.lm_apply(cfg, params, seq, collect_state=rings,
                                    cache_len=cfg.window if rings else None)
-    full = full[:, prompts.shape[1] - 1:]
+    full = full[:, prompts.shape[1] - 1:][:, :toks.shape[1]]
     dec = torch.stack(steps, dim=1)                       # (B, new, V)
     delta = (dec - full).abs().amax(dim=-1)
     rel = delta / full.abs().amax(dim=-1)
@@ -3599,103 +3801,36 @@ def phase4l_generate_f32_control(torch, np, card: str, bf16_rel: float):
 def phase4l_hybrid_training(torch, np, card: str, mode: str):
     """(c) Training of ``recurrentgemma-9b`` at full width and
     ``HY_TRAIN_LAYERS`` layers in ``mode``, on 1 x ``HY_TRAIN_N`` tokens,
-    AdamW, ``remat="block"``.  Returns ({kernel: launches}, the first
-    step's first captured call of each kernel, {"step_ms", "peak"})."""
+    AdamW, ``remat="block"`` (:func:`_train_full`).  Returns ({kernel:
+    launches}, the first step's first captured call of each kernel,
+    {"step_ms", "peak"})."""
     from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import SyntheticLMIterator
-    from repro_torch.kernels import ops
-    from repro_torch.models.factory import build
-    from repro_torch.models.param import count_params
-    from repro_torch.train.loop import LoopConfig, run_train_loop
-    from repro_torch.train.optim import make_optimizer, warmup_cosine
-    from repro_torch.train.state import init_train_state, make_train_step
 
     cfg = get_config(HYBRID, n_layers=HY_TRAIN_LAYERS, attn_mode=mode)
-    _require((cfg.remat, cfg.optimizer) == ("block", "adamw"), str(cfg))
     n_attn = _n_mixers(cfg, "aaren" if mode == "aaren" else "attn_local")
-    api = build(cfg)
-    n_params = count_params(api.specs())
-    steps = HY_WARM + HY_MEASURED
-    ti = time.perf_counter()
-    params = api.init(0, device="cuda")
-    opt = make_optimizer(cfg.optimizer, warmup_cosine(3e-4, 1, steps))
-    state = init_train_state(params, opt)
-    step_fn = make_train_step(api.loss, opt, max_grad_norm=1.0)
-    torch.cuda.synchronize()
-    print(f"  {mode}: {HY_TRAIN_LAYERS} layers, {n_params / 1e9:.3f} B "
-          f"params, init {time.perf_counter() - ti:.2f} s: params + AdamW "
-          f"moments {torch.cuda.memory_allocated() / 2**30:.2f} GiB on card")
-    data = SyntheticLMIterator(vocab=cfg.vocab, seq_len=HY_TRAIN_N, batch=1,
-                               seed=0)
-    names = (("aaren_scan", "aaren_scan_bwd") if mode == "aaren" else
-             ("flash_attention", "flash_attention_bwd"))
-    reals = {n: getattr(ops, n) for n in names}
-    captured = {}
+    want = ({"aaren_scan": 2 * n_attn, "aaren_scan_bwd": n_attn}
+            if mode == "aaren" else
+            {"flash_attention": 2 * n_attn, "flash_bwd_dq": n_attn,
+             "flash_bwd_dkv": n_attn})
+    return _train_full(torch, np, card, cfg, f"hybrid {mode}", 1,
+                       HY_TRAIN_N, want)
 
-    def spy(name):
-        def wrapped(*args, **kw):
-            if name not in captured:
-                captured[name] = ([a.clone() for a in args], dict(kw))
-            return reals[name](*args, **kw)
-        return wrapped
 
-    losses, finite = [], {"ok": True}
-
-    def on_log(step, m):
-        finite["ok"] &= bool(np.isfinite(m["loss"])
-                             and np.isfinite(m["grad_norm"]))
-        losses.append(m["loss"])
-        print(f"  step {step}: loss {m['loss']:.4f} grad_norm "
-              f"{m['grad_norm']:.4f} {m['step_time_s'] * 1e3:.1f} ms")
-
-    counters = _counts()
-    for n in names:
-        setattr(ops, n, spy(n))
-    undo = _forbid_plain_on_card()
-    torch.cuda.reset_peak_memory_stats()
-    # The main path: counts from zero, read right after.
-    for c in counters.values():
-        c.n_launches = 0
-    try:
-        result = run_train_loop(step_fn, state, data,
-                                LoopConfig(total_steps=steps, log_every=1),
-                                on_log=on_log)
-    finally:
-        for n in names:
-            setattr(ops, n, reals[n])
-        undo()
-    launches = {k: c.n_launches for k, c in counters.items()}
-    peak = torch.cuda.max_memory_allocated()
-    _require(finite["ok"], f"non-finite loss or grad norm: {losses}")
-    _require(result.state.step == steps, f"ran {result.state.step} steps")
-    want = ({"aaren_scan": 2 * n_attn * steps,
-             "aaren_scan_bwd": n_attn * steps} if mode == "aaren" else
-            {"flash_attention": 2 * n_attn * steps,
-             "flash_bwd_dq": n_attn * steps, "flash_bwd_dkv": n_attn * steps})
-    want = {k: want.get(k, 0) for k in launches}
-    _require(launches == want, f"launches {launches}, want {want}")
-    step_s = [m["step_time_s"] for _, m in result.history[HY_WARM:]]
-    step_ms = statistics.median(step_s) * 1e3
-    mfu = 6 * n_params * HY_TRAIN_N / (step_ms / 1e3) / BF16_DENSE_FLOPS
-    print(f"  (c) {mode} training 1 x {HY_TRAIN_N}: step median "
-          f"{step_ms:.3f} ms ({', '.join(f'{s * 1e3:.1f}' for s in step_s)}"
-          f" ms), {HY_TRAIN_N / (step_ms / 1e3):.1f} tokens/s, MFU "
-          f"{mfu:.2%}, peak memory {peak / 2**30:.2f} GiB; launches "
-          + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
-          + f"  [{card}]")
-    train_state = {"state": result.state}
-    batch = next(data)
-
-    def one_step():
-        train_state["state"], _ = step_fn(train_state["state"], batch)
-
-    _print_profile(_device_profile(torch, one_step, 1),
-                   f"hybrid {mode} training step", card, top=12)
-    del train_state, result, state, params
-    gc.collect()
-    torch.cuda.empty_cache()
-    return ({k: v for k, v in launches.items() if v}, captured,
-            {"step_ms": step_ms, "peak": peak})
+def _scan_row(torch, card, name, label, fn, plain, bound, n_iter,
+              plain_iter) -> dict:
+    """B1's or B2's row at one shape: device time in a replayed CUDA graph,
+    eager call, plain version and ``bound`` ((ms, "bytes" or "operations",
+    bytes)); no PyTorch call computes either, so no library time."""
+    ms, call_ms, plain_ms, plain_call_ms = _kernel_times(
+        torch, fn, plain, n_iter, plain_iter)
+    bound_ms, bound_by, nbytes = bound
+    print(f"  {name} at {label}: device {ms * 1e3:.3f} us (eager call "
+          f"{call_ms * 1e3:.2f} us), plain device {plain_ms * 1e3:.2f} "
+          f"us (eager call {plain_call_ms * 1e3:.2f} us), bound "
+          f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B), "
+          f"{ms / bound_ms:.2f}x the bound  [{card}]")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def _hybrid_kernel_rows(torch, np, card, serve_cap, train_cap):
@@ -3719,17 +3854,8 @@ def _hybrid_kernel_rows(torch, np, card, serve_cap, train_cap):
     errs = dict.fromkeys(rows, 0.0)
 
     def scan_row(name, label, fn, plain, bound, n_iter, plain_iter):
-        ms, call_ms, plain_ms, plain_call_ms = _kernel_times(
-            torch, fn, plain, n_iter, plain_iter)
-        bound_ms, bound_by, nbytes = bound
-        print(f"  {name} at {label}: device {ms * 1e3:.3f} us (eager call "
-              f"{call_ms * 1e3:.2f} us), plain device {plain_ms * 1e3:.2f} "
-              f"us (eager call {plain_call_ms * 1e3:.2f} us), bound "
-              f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B), "
-              f"{ms / bound_ms:.2f}x the bound  [{card}]")
-        rows[name][label] = {"ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": bound_ms, "bound_by": bound_by,
-                             "library_ms": None}
+        rows[name][label] = _scan_row(torch, card, name, label, fn, plain,
+                                      bound, n_iter, plain_iter)
 
     s, v, m0, u0, w0 = serve_cap["b1"]
     r, n, d = v.shape
@@ -3805,7 +3931,7 @@ def phase4l_hybrid(torch, np, card: str):
     full-width recurrentgemma-9b serving, (c) its training in both modes at
     12 layers, (d) B1–B5 at its shapes.  Returns ({kernel: {"serve_hybrid":
     n, "train_hybrid": n}}, {kernel: {shape: row}}, {kernel: max |err|})."""
-    phase4l_small_configs(torch, np)
+    _small_configs(torch, np, SMALL_ARCHS, 120)
     gc.collect()
     torch.cuda.empty_cache()
     b1_serve, b1_args, b1_err, (api, params) = phase4l_hybrid_serving(
@@ -3831,6 +3957,462 @@ def phase4l_hybrid(torch, np, card: str):
     errs["aaren_scan"] = max(errs["aaren_scan"], b1_err)
     by_path = {k: {"serve_hybrid": serve_launches.get(k, 0),
                    "train_hybrid": train_launches.get(k, 0)} for k in rows}
+    return by_path, rows, errs
+
+
+
+SSM = "mamba2-1.3b"
+MOE = "qwen3-moe-30b-a3b"
+SSM_MOE_SMALL = ("mamba2-1.3b", "qwen3-moe-30b-a3b", "dbrx-132b")
+# (b): mamba2's generate.  Three 256-token SSD chunks of prompt (so the
+# inter-chunk scan runs), and 256 new tokens: the forward over prompt +
+# output is 1024 tokens, a length the chunked SSD takes.
+MB_GEN_B, MB_GEN_P, MB_GEN_NEW = 2, 768, 256
+MB_SHORT_P, MB_SHORT_NEW = (1, 2), 16     # the reference's short conv tails
+MB_TRAIN_LAYERS = 48
+# The f32 controls: full width, cut depth, f32 weights and compute, so no
+# bf16 is left between decode and the full forward; for qwen3-moe
+# capacity_factor E / k = 16 leaves every expert room for every token, so
+# decode and the forward route alike.  The bars, as fractions of a step's
+# largest logit, from CPU readings at reduced width (d_model 512; mamba2 16
+# SSD heads, 6 layers, P = 768 + 256 new; qwen3-moe 8 x 128 heads, 1 kv
+# head, 32 experts top-8, 4 layers, P = 128 + 8 new): a sound mamba2
+# decode reads 2.97e-05 (P = 1 and 2: 4.6e-06), one that loses its conv
+# tail (as the reference's short tail does) 1.8; a sound qwen3-moe decode
+# reads 6.9e-07, the same at capacity factor 1.25 (so that decode and the
+# forward drop different tokens) 2.0e-03.
+MB_F32_LAYERS = 6
+MB_F32_RTOL = 1e-3
+# (b) in bf16: decode's logits against the full forward's, as a fraction of
+# the step's largest logit.  The 48-layer run reads 0.214 at most (median
+# 0.102; NVIDIA H100 80GB HBM3, 700 W), and the bar is twice that.  The
+# same weights' f32 forward tells rounding from a decode fault: decode must
+# be no farther from it than MB_GEN_EXACT times the bf16 forward is.  On
+# that card both read 0.157 of the largest logit from it (median), and the
+# residual stream's bf16 drift grows with depth, from 0.66 % after layer 1
+# to 16.6 % after layer 48: the gap is bf16 rounding, not decode.
+MB_GEN_RTOL = 0.43
+MB_GEN_EXACT = 2.0
+MB_DRIFT_AT = (1, 6, 12, 24, 48)
+MOE_F32_LAYERS = 4
+MOE_F32_CF = 16.0
+MOE_F32_RTOL = 1e-4
+MOE_TRAIN_LAYERS = 4
+# Decode state a slot: 48 x (s (64, 64, 128) f32 + conv (3, 4352) bf16);
+# 48 x an Aaren carry of 32 heads x (128 + 2) f32.
+MB_STATE_BYTES = 48 * (64 * 64 * 128 * 4 + 3 * 4352 * 2)
+MOE_STATE_BYTES = 48 * 32 * 130 * 4
+
+
+def _active_params(api) -> int:
+    """The parameters one token's forward multiplies through: each layer's
+    mixer, router and ``n_experts_per_tok`` of its experts, and the
+    unembedding (the embedding is a lookup)."""
+    from repro_torch.models.param import count_params
+
+    cfg, specs = api.cfg, api.specs()
+    n = count_params(specs.get("unembed", specs["embed"]))
+    for layer in specs["layers"]:
+        mlp = layer["mlp"]
+        experts = count_params([mlp["wi_gate"], mlp["wi_up"], mlp["wo"]])
+        n += (count_params(layer["mixer"]) + count_params(mlp["router"])
+              + experts * cfg.n_experts_per_tok // cfg.n_experts)
+    return n
+
+
+def _peak(torch, what: str, card: str) -> None:
+    print(f"  {what}: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase4m_ssm_generate(torch, np, card: str, api, params) -> None:
+    """(b) ``generate`` of the full-width ``mamba2-1.3b``: B = 2, P = 768
+    (three SSD chunks), 256 new tokens; counts zeroed just before and read
+    just after (no kernel, no plain version).  Every step's logits against
+    the full forward over the 1024 tokens of prompt + output
+    (:func:`_decode_against_forward`): within ``MB_GEN_RTOL`` of the
+    step's largest logit, and a token differs from the forward's argmax
+    only where the two bf16 paths' disagreement allows a flip.  Then both
+    paths against the same weights' f32 forward
+    (:func:`_bf16_against_f32`): decode no farther from it than
+    ``MB_GEN_EXACT`` times the bf16 forward, so the gap is the model's own
+    bf16 rounding, whose growth through the layers is printed."""
+    from repro_torch.serving.engine import decode_state_bytes, generate
+
+    cfg = api.cfg
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab,
+                                                (MB_GEN_B, MB_GEN_P))
+    steps = []
+    counters = _counts()
+    undo = _forbid_plain_on_card()
+    # The main path: counts from zero, read right after.
+    for c in counters.values():
+        c.n_launches = 0
+    try:
+        tg = time.perf_counter()
+        toks, states = generate(api, params, prompts, MB_GEN_NEW,
+                                sampler=_recording_greedy(steps))
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - tg
+    finally:
+        undo()
+    launches = {k: c.n_launches for k, c in counters.items()}
+    _require(not any(launches.values()), f"mamba2 generate launched "
+             f"{launches}: an SSD model runs no kernel of B1-B5")
+    _require(tuple(toks.shape) == (MB_GEN_B, MB_GEN_NEW),
+             f"generate returned {tuple(toks.shape)}")
+    rel, agree, explained, margin, delta, _ = _decode_against_forward(
+        torch, cfg, params, prompts, toks, steps, with_last=True)
+    print(f"  mamba2 (b) generate B={MB_GEN_B} P={MB_GEN_P} "
+          f"new={MB_GEN_NEW}: {gen_s:.3f} s "
+          f"({MB_GEN_B * MB_GEN_NEW / gen_s:.1f} tok/s), no kernel "
+          f"launched; decode state {decode_state_bytes(states)} B  [{card}]")
+    print(f"  mamba2 (b) against the full forward over {MB_GEN_P + MB_GEN_NEW}"
+          f" tokens: {int(agree.sum())}/{agree.numel()} tokens its argmax; "
+          f"|logits - forward's| / max |logit| per step: prefill "
+          f"{rel[:, 0].max().item():.2e}, decode max "
+          f"{rel[:, 1:].max().item():.2e}, median "
+          f"{rel[:, 1:].median().item():.2e}; forward's top-2 margin where "
+          f"a token differs: {margin[~agree].tolist()[:8]} against twice "
+          f"the disagreement {(2 * delta)[~agree].tolist()[:8]}")
+    _require(bool(torch.isfinite(rel).all()), "mamba2 generate: non-finite "
+             "logits")
+    _require(bool((agree | explained).all()), "mamba2 generate: a token "
+             "differs from the full forward's argmax by more than the two "
+             "paths' disagreement explains")
+    _require(rel.max().item() <= MB_GEN_RTOL, f"mamba2 generate: logits "
+             f"{rel.max().item():.3e} of max |logit| from the full forward's")
+
+    seq = torch.cat([torch.as_tensor(prompts, device="cuda"),
+                     toks.to("cuda")], dim=1)
+    drift, fwd, exact = _bf16_against_f32(torch, cfg, params, seq)
+    at = slice(MB_GEN_P, MB_GEN_P - 1 + MB_GEN_NEW)     # the decode steps
+    exact = exact[:, at]
+    scale = exact.abs().amax(dim=-1)
+    fwd_rel = (fwd[:, at] - exact).abs().amax(dim=-1) / scale
+    dec = torch.stack(steps[1:], dim=1)
+    dec_rel = (dec - exact).abs().amax(dim=-1) / scale
+    print(f"  mamba2 (b) against the same weights' f32 forward (|logits - "
+          f"f32's| / max |logit| over the decode steps): bf16 forward median "
+          f"{fwd_rel.median().item():.3e}, max {fwd_rel.max().item():.3e}; "
+          f"bf16 decode median {dec_rel.median().item():.3e}, max "
+          f"{dec_rel.max().item():.3e}; the residual stream's "
+          f"||bf16 - f32|| / ||f32|| after layer "
+          + ", ".join(f"{i} {drift[i - 1]:.3e}" for i in MB_DRIFT_AT
+                      if i <= len(drift)) + f"  [{card}]")
+    _require(dec_rel.median().item()
+             <= MB_GEN_EXACT * fwd_rel.median().item(), "mamba2 generate: "
+             "decode is farther from the f32 forward than the bf16 forward")
+
+
+def _bf16_against_f32(torch, cfg, params, seq):
+    """The bf16 model over ``seq`` (B, L) against itself with its weights
+    widened to f32 (exactly) and f32 compute: what bf16 rounding alone
+    does, with no decode.  Returns the residual stream's relative distance
+    ||x_bf16 - x_f32|| / ||x_f32|| after each layer, the bf16 logits and
+    the f32 logits."""
+    from repro_torch.models import blocks, lm
+    from repro_torch.models.layers import apply_embed
+    from repro_torch.tree import tree_map
+
+    f32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    wide = tree_map(lambda t: t.float(), params)
+    drift = []
+    with torch.inference_mode():
+        x = apply_embed(params["embed"], seq,
+                        getattr(torch, cfg.compute_dtype))
+        xf = apply_embed(wide["embed"], seq, torch.float32)
+        for p, pf, sig in zip(params["layers"], wide["layers"],
+                              lm.layer_sigs(cfg)):
+            x = blocks.block_sequence(p, x, sig, cfg, want_aux=False)[0]
+            xf = blocks.block_sequence(pf, xf, sig, f32, want_aux=False)[0]
+            drift.append(((x.float() - xf).norm() / xf.norm()).item())
+        fwd = lm.lm_apply(cfg, params, seq)[0]
+        exact = lm.lm_apply(f32, wide, seq)[0]
+    del wide
+    return drift, fwd, exact
+
+
+def _f32_control(torch, np, card, cfg, label, prompt_shapes, new, rtol):
+    """``generate`` of ``cfg`` (f32 weights from seed 0, f32 compute) from
+    random prompts of each shape in ``prompt_shapes``, ``new`` tokens each,
+    against the full forward over prompt + output: every step's logits
+    within ``rtol`` of the step's largest logit, every token the forward's
+    argmax.  Returns the largest relative disagreement."""
+    from repro_torch.models.factory import build
+    from repro_torch.serving.engine import generate
+
+    tc = time.perf_counter()
+    api = build(cfg)
+    params = api.init(0, device="cuda")
+    worst = 0.0
+    for i, shape in enumerate(prompt_shapes):
+        prompts = np.random.default_rng(1 + i).integers(0, cfg.vocab, shape)
+        steps = []
+        toks, _ = generate(api, params, prompts, new,
+                           sampler=_recording_greedy(steps))
+        rel, agree, _, margin, _, _ = _decode_against_forward(
+            torch, cfg, params, prompts, toks, steps, with_last=True)
+        worst = max(worst, rel.max().item())
+        print(f"  {label} f32 control, {cfg.n_layers} layers at full width, "
+              f"B={shape[0]} P={shape[1]} new={new}: |logits - forward's| / "
+              f"max |logit| max {rel.max().item():.3e}, median "
+              f"{rel.median().item():.3e} (bar {rtol:.0e}); "
+              f"{int(agree.sum())}/{agree.numel()} tokens the forward's "
+              f"argmax (smallest margin {margin.min().item():.3e})  [{card}]")
+        _require(bool(agree.all()), f"{label} f32 control P={shape[1]}: a "
+                 "token differs from the full forward's argmax")
+        _require(rel.max().item() <= rtol, f"{label} f32 control "
+                 f"P={shape[1]}: logits {rel.max().item():.3e} of max "
+                 "|logit| from the full forward's")
+    print(f"  {label} f32 control: {time.perf_counter() - tc:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase4m_moe_generate(torch, np, card: str, api, params):
+    """(e) Softmax-mode ``generate`` of the full-width ``qwen3-moe-30b-a3b``
+    on (d)'s parameters (the Aaren query tokens go unread): phase 4's B = 4,
+    P = 128, 8 new tokens, counts zeroed just before and read just after
+    (B3 once a layer: one prefill).  Prints the tokens and the prefill's
+    ``dropped_frac`` (capacity binds, so decode and the full forward route
+    differently here: the f32 control below holds decode to the forward).
+    Returns (B3 launches, B3's captured prefill call {"args", "kw"})."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.factory import build
+    from repro_torch.serving.engine import decode_state_bytes, generate
+
+    soft = build(api.cfg.replace(attn_mode="softmax"))
+    cfg = soft.cfg
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (GEN_B, GEN_P))
+    prefill = {}
+    real_fwd = ops.flash_attention
+
+    def capture_fwd(*args, **kw):
+        if not prefill:
+            prefill["args"] = [a.clone() for a in args]
+            prefill["kw"] = dict(kw)
+        return real_fwd(*args, **kw)
+
+    ops.flash_attention = capture_fwd
+    try:
+        generate(soft, params, prompts, 2)       # warm-up, and B3's inputs
+    finally:
+        ops.flash_attention = real_fwd
+    torch.cuda.synchronize()
+    counters = _counts()
+    undo = _forbid_plain_on_card()
+    # The main path: counts from zero, read right after.
+    for c in counters.values():
+        c.n_launches = 0
+    try:
+        tg = time.perf_counter()
+        toks, states = generate(soft, params, prompts, GEN_NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - tg
+    finally:
+        undo()
+    launches = {k: c.n_launches for k, c in counters.items()}
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = cfg.n_layers
+    _require(launches == want, f"generate launched {launches}, want {want}: "
+             "one prefill")
+    _require(tuple(toks.shape) == (GEN_B, GEN_NEW),
+             f"generate returned {tuple(toks.shape)}")
+    with torch.inference_mode():
+        _, _, aux = lm.lm_apply(cfg, params, torch.as_tensor(
+            prompts, device="cuda"), return_aux=True)
+    dropped = float(aux["dropped_frac"])
+    print(f"  qwen3-moe (e) softmax generate B={GEN_B} P={GEN_P} "
+          f"new={GEN_NEW}: {gen_s:.3f} s; B3 launches "
+          f"{launches['flash_attention']} (one prefill); KV caches "
+          f"{decode_state_bytes(states)} B; the prefill's dropped_frac "
+          f"{dropped:.4f} (mean of {cfg.n_layers} layers), "
+          f"load_balance_loss {float(aux['load_balance_loss']):.4f}; tokens "
+          f"{toks.tolist()}"
+          f"  [{card}]")
+    _require(0.0 <= dropped < 1.0, f"dropped_frac {dropped}")
+    return launches["flash_attention"], prefill
+
+
+def _moe_kernel_rows(torch, np, card, serve_cap, train_cap):
+    """(g) B1–B5 at qwen3-moe-30b-a3b's shapes, on inputs captured from
+    (d)–(f), against their plain versions, with device time, bound and
+    library call: B1 at the serving tick (R = 8 x 32, N = 16, d = 128) and
+    with residuals at training (R = 4 x 32, N = 1024); B2 at training;
+    bf16 B3–B5 at training (B = 4, H = 32, G = 4, N = 1024, d = 128,
+    causal), and B3 at the prefill (B = 4, N = 128); SDPA with
+    ``enable_gqa`` beside B3–B5.  Returns ({kernel: {shape: row}}, {kernel:
+    max |err|})."""
+    from repro_torch.kernels.aaren_scan import aaren_scan, aaren_scan_plain
+    from repro_torch.kernels.aaren_scan_bwd import (
+        aaren_scan_bwd,
+        aaren_scan_bwd_plain,
+    )
+
+    rows = {k: {} for k in FLASH_KERNELS + SCAN_KERNELS}
+    errs = dict.fromkeys(rows, 0.0)
+
+    def scan_row(name, label, fn, plain, bound, n_iter, plain_iter):
+        rows[name][label] = _scan_row(torch, card, name, label, fn, plain,
+                                      bound, n_iter, plain_iter)
+
+    s, v, m0, u0, w0 = serve_cap["b1"]
+    r, n, d = v.shape
+    scan_row("aaren_scan", f"serve R={r} N={n} d={d}",
+             lambda: aaren_scan(s, v, m0, u0, w0),
+             lambda: aaren_scan_plain(s, v, m0, u0, w0),
+             _b1_bound(r, n, d, residuals=False), 200, 20)
+    (args, kw) = train_cap["aaren"]["aaren_scan"]
+    errs["aaren_scan"] = _compare_scan_residuals(
+        torch, args, "qwen3-moe training step, first layer")
+    s, v, m0, u0, w0 = args
+    r, n, d = v.shape
+    scan_row("aaren_scan", f"train R={r} N={n} d={d}",
+             lambda: aaren_scan(s, v, m0, u0, w0, return_residuals=True),
+             lambda: aaren_scan_plain(s, v, m0, u0, w0,
+                                      return_residuals=True),
+             _b1_bound(r, n, d, residuals=True), 20, 3)
+    (bwd, _) = train_cap["aaren"]["aaren_scan_bwd"]
+    errs["aaren_scan_bwd"] = _compare_bwd(
+        torch, bwd, "qwen3-moe training step, last layer")
+    scan_row("aaren_scan_bwd", f"train R={r} N={n} d={d}",
+             lambda: aaren_scan_bwd(*bwd), lambda: aaren_scan_bwd_plain(*bwd),
+             _b2_bound(r, n, d), 20, 3)
+
+    def flash_rows(label, q, k, v, do, check_label, names):
+        got = _check_flash(torch, q, k, v, do, None, True, None, check_label)
+        for key in errs:
+            errs[key] = max(errs[key], got.get(key, 0.0))
+        timed = flash_kernel_times(torch, q, k, v, do, None, True, None,
+                                   card, plain_iter=2)
+        for name in names:
+            rows[name][label] = {key: timed[name][key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "tflops")}
+
+    (bwd_args, bkw) = train_cap["softmax"]["flash_attention_bwd"]
+    q, k, v, o, lse, do = bwd_args
+    _require(bkw.get("window") is None and bkw.get("q_lens") is None
+             and q.dtype == torch.bfloat16 and k.shape[1] == 4,
+             f"the qwen3-moe flash backward call: {sorted(bkw)}")
+    b, h, n_q, d = q.shape
+    flash_rows(f"train B={b} H={h} G={k.shape[1]} N={n_q} d={d}", q, k, v,
+               do, "qwen3-moe softmax training step, layer 0", FLASH_KERNELS)
+    qp, kp, vp = serve_cap["b3"]["args"][:3]
+    b, h, n_q, d = qp.shape
+    flash_rows(f"prefill B={b} H={h} G={kp.shape[1]} N={n_q} d={d}", qp, kp,
+               vp, torch.randn_like(qp), "qwen3-moe softmax generate "
+               "prefill, layer 0", ("flash_attention",))
+    return rows, errs
+
+
+def phase4m_ssm_moe(torch, np, card: str):
+    """Phase 4m: (h) the three smoke configs card against CPU; (a)–(c)
+    the full-width mamba2-1.3b's serving, generate (with its f32 control)
+    and training; (d)–(f) the full-width qwen3-moe-30b-a3b's Aaren serving,
+    softmax generate (with its f32 control) and training at 4 layers in
+    both modes; (g) B1–B5 at qwen3's shapes.  Returns ({kernel:
+    {"serve_ssm", "train_ssm", "serve_moe", "train_moe": n}}, {kernel:
+    {shape: row}}, {kernel: max |err|})."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.factory import build
+    from repro_torch.models.param import count_params
+
+    _small_configs(torch, np, SSM_MOE_SMALL, 130)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    cfg = get_config(SSM)
+    _require((cfg.family, cfg.param_dtype, cfg.compute_dtype, cfg.n_layers,
+              cfg.d_model, cfg.d_inner, cfg.ssm_heads, cfg.ssm_state,
+              cfg.vocab, cfg.tie_embeddings, cfg.mlp_pattern)
+             == ("ssm", "bfloat16", "bfloat16", 48, 2048, 4096, 64, 128,
+                 50280, True, ("none",)), str(cfg))
+    api = build(cfg)
+    n_params = count_params(api.specs())
+    _require(n_params == 1_343_740_928, f"{n_params} parameters")
+    ti = time.perf_counter()
+    params = api.init(0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  {SSM} init {time.perf_counter() - ti:.2f} s: {n_params:,} "
+          f"params, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on card")
+    _serve_full(torch, np, card, api, params, "mamba2 (a)", 0,
+                MB_STATE_BYTES)
+    _peak(torch, "mamba2 (a) serving", card)
+    phase4m_ssm_generate(torch, np, card, api, params)
+    _peak(torch, "mamba2 (b) generate", card)
+    del api, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = get_config(SSM, n_layers=MB_F32_LAYERS, param_dtype="float32",
+                     compute_dtype="float32")
+    _f32_control(torch, np, card, f32, "mamba2 (b)",
+                 [(MB_GEN_B, MB_GEN_P)], MB_GEN_NEW, MB_F32_RTOL)
+    _f32_control(torch, np, card, f32, "mamba2 (b) short prompts",
+                 [(MB_GEN_B, p) for p in MB_SHORT_P], MB_SHORT_NEW,
+                 MB_F32_RTOL)
+    _peak(torch, "mamba2 (b) f32 control", card)
+    _train_full(torch, np, card, get_config(SSM, n_layers=MB_TRAIN_LAYERS),
+                "mamba2 (c)", TRAIN_B, TRAIN_N, {})
+    torch.cuda.reset_peak_memory_stats()
+
+    cfg = get_config(MOE)
+    _require((cfg.family, cfg.attn_mode, cfg.param_dtype, cfg.compute_dtype,
+              cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+              cfg.resolved_head_dim, cfg.n_experts, cfg.n_experts_per_tok,
+              cfg.moe_d_ff, cfg.capacity_factor, cfg.vocab,
+              cfg.tie_embeddings)
+             == ("moe", "aaren", "bfloat16", "bfloat16", 48, 2048, 32, 4,
+                 128, 128, 8, 768, 1.25, 151936, False), str(cfg))
+    api = build(cfg)
+    n_params = count_params(api.specs())
+    ti = time.perf_counter()
+    params = api.init(0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  {MOE} init {time.perf_counter() - ti:.2f} s: {n_params:,} "
+          f"params, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on card")
+    b1_serve, b1_args, b1_err = _serve_full(
+        torch, np, card, api, params, "qwen3-moe (d)", cfg.n_layers,
+        MOE_STATE_BYTES)
+    _peak(torch, "qwen3-moe (d) serving", card)
+    b3_serve, b3_call = phase4m_moe_generate(torch, np, card, api, params)
+    _peak(torch, "qwen3-moe (e) generate", card)
+    del api, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _f32_control(torch, np, card, get_config(
+        MOE, n_layers=MOE_F32_LAYERS, attn_mode="softmax",
+        param_dtype="float32", compute_dtype="float32",
+        capacity_factor=MOE_F32_CF), "qwen3-moe (e)", [(GEN_B, GEN_P)],
+        GEN_NEW, MOE_F32_RTOL)
+    _peak(torch, "qwen3-moe (e) f32 control", card)
+    train_launches, train_cap = {}, {}
+    for mode in ("aaren", "softmax"):
+        tcfg = get_config(MOE, n_layers=MOE_TRAIN_LAYERS, attn_mode=mode)
+        n = tcfg.n_layers
+        want = ({"aaren_scan": 2 * n, "aaren_scan_bwd": n}
+                if mode == "aaren" else
+                {"flash_attention": 2 * n, "flash_bwd_dq": n,
+                 "flash_bwd_dkv": n})
+        launches, train_cap[mode], _ = _train_full(
+            torch, np, card, tcfg, f"qwen3-moe (f) {mode}", TRAIN_B, TRAIN_N,
+            want, mfu_params=_active_params(build(tcfg)),
+            mfu_label="MFU on active parameters")
+        train_launches.update(launches)
+    rows, errs = _moe_kernel_rows(torch, np, card, {"b1": b1_args,
+                                                    "b3": b3_call}, train_cap)
+    errs["aaren_scan"] = max(errs["aaren_scan"], b1_err)
+    serve = {"aaren_scan": b1_serve, "flash_attention": b3_serve}
+    by_path = {k: {"serve_ssm": 0, "train_ssm": 0,
+                   "serve_moe": serve.get(k, 0),
+                   "train_moe": train_launches.get(k, 0)} for k in rows}
     return by_path, rows, errs
 
 
@@ -3978,6 +4560,12 @@ def main() -> int:
     # 4l. The hybrid recurrentgemma-9b and the A10a smoke configs -----------
     _phase("4l hybrid recurrentgemma-9b", t0)
     hy_paths, hy_rows, hy_errs = phase4l_hybrid(torch, np, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4m. The SSM and MoE families: mamba2-1.3b and qwen3-moe-30b-a3b -------
+    _phase("4m mamba2-1.3b and qwen3-moe-30b-a3b", t0)
+    m_paths, m_rows, m_errs = phase4m_ssm_moe(torch, np, card)
 
     # 5. Results ---------------------------------------------------------------
     _phase("5 results", t0)
@@ -4085,13 +4673,19 @@ def main() -> int:
                        "causal boolean mask",
             "shape": "packed training, layer 0: B=4 H=G=32 N=1024 d=96 bf16 "
                      "causal, segment ids"})
-    for row in kernels:   # the hybrid's launches and shapes (phase 4l)
-        name = row["name"]
-        if name in hy_paths:
-            row["launches_by_path"].update(hy_paths[name])
-            row["launches"] += sum(hy_paths[name].values())
-            row["max_abs_err"] = max(row["max_abs_err"], hy_errs[name])
-            row["hybrid"] = hy_rows[name]
+    # The launches and shapes of the hybrid (phase 4l) and of the SSM and
+    # MoE models (phase 4m).
+    for key, paths, shape_rows, errs in (("hybrid", hy_paths, hy_rows,
+                                          hy_errs),
+                                         ("qwen3_moe", m_paths, m_rows,
+                                          m_errs)):
+        for row in kernels:
+            name = row["name"]
+            if name in paths:
+                row["launches_by_path"].update(paths[name])
+                row["launches"] += sum(paths[name].values())
+                row["max_abs_err"] = max(row["max_abs_err"], errs[name])
+                row[key] = shape_rows[name]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,13 @@
 
 from repro_torch.configs import (  # noqa: F401  (import for registration)
     aaren_paper,
+    dbrx_132b,
     gemma3_27b,
     llama3_405b,
+    mamba2_1p3b,
     minitron_8b,
     phi3_mini_3p8b,
+    qwen3_moe_30b_a3b,
     recurrentgemma_9b,
 )
 from repro_torch.configs.base import (  # noqa: F401

@@ -7,8 +7,8 @@ the two drift apart.  Each architecture the port serves is an
 ``get_config(name)`` resolves them.  ``attn_mode='aaren'`` (the default)
 replaces softmax-attention mixers with Aaren prefix-scan attention;
 ``attn_mode='softmax'`` keeps them, the paper's baseline.  The port builds
-the ``dense`` and ``hybrid`` families; the other families' configs come
-with their mixers.
+the ``dense``, ``hybrid``, ``ssm`` and ``moe`` families; the other
+families' configs come with their mixers.
 """
 
 from __future__ import annotations

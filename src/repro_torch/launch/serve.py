@@ -35,6 +35,10 @@ Example::
         --requests 16 --slots 8 --max-new 32
     python -m repro_torch.launch.serve --arch recurrentgemma-9b \
         --attn-mode softmax --engine wave --requests 2 --prompt-len 2304
+    python -m repro_torch.launch.serve --arch mamba2-1.3b \
+        --requests 16 --slots 8 --max-new 32
+    python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
+        --requests 16 --slots 8 --chunk 16 --max-new 32
 """
 
 from __future__ import annotations

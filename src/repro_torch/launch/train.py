@@ -18,6 +18,8 @@ Example::
         --events events.jsonl --metrics-out metrics.json
     python -m repro_torch.launch.train --arch recurrentgemma-9b --smoke \
         --steps 3 --device cpu
+    python -m repro_torch.launch.train --arch dbrx-132b --smoke \
+        --steps 3 --device cpu
 """
 
 from __future__ import annotations

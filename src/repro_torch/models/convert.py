@@ -3,12 +3,15 @@
 The JAX package stacks the parameters of every full period of layers along
 a leading axis (``params["periods"][pos]``, one tree per pattern position)
 and keeps the remainder layers in ``params["rest"]``; its decode states
-follow the same layout (``ScanState`` carries, KV-cache dicts or RG-LRU
-``{"h", "conv"}`` dicts).  The port keeps one flat list of layers.
-:func:`params_from_jax` takes the JAX parameter tree as numpy arrays and
-returns the port's parameters, so both packages compute the same function
-(trees with or without Aaren's ``query`` leaf copy alike, and RG-LRU's 3-D
-block-diagonal gates ``(nb, bw, bw)`` as any other leaf);
+follow the same layout (``ScanState`` carries, KV-cache dicts, RG-LRU
+``{"h", "conv"}`` or SSD ``{"s", "conv"}`` dicts).  The port keeps one flat
+list of layers.  :func:`params_from_jax` takes the JAX parameter tree as
+numpy arrays and returns the port's parameters, so both packages compute
+the same function: trees with or without Aaren's ``query`` leaf copy
+alike, blocks without ``norm2``/``mlp`` (MLP ``"none"``), and every leaf
+of any rank — RG-LRU's block-diagonal gates ``(nb, bw, bw)``, the experts'
+``(E, d, f)`` weights (4-D when stacked over periods) and the SSD leaves
+— by taking period ``i`` off its leading axis;
 :func:`states_to_jax_layout` turns a port decode state into the JAX layout
 for comparison.  Only numpy crosses the boundary: this module imports
 nothing of the JAX package.
@@ -74,9 +77,10 @@ def states_to_jax_layout(cfg: ArchConfig, states: list) -> dict:
     """Port decode state -> ``{"periods": (state stacked over periods, one
     per pattern position), "rest": (state, ...)}`` of numpy arrays, the
     layout of the JAX package's ``lm_state_init``.  A layer's state is a
-    ``ScanState`` carry, an RG-LRU dict (``h``, ``conv``) or a KV-cache dict
-    (``k``, ``v``, ``index`` and, from a ragged prefill, ``prompt_lens``,
-    ``prompt_pad``); bf16 leaves come back as f32."""
+    ``ScanState`` carry, an RG-LRU dict (``h``, ``conv``), an SSD dict
+    (``s``, ``conv``) or a KV-cache dict (``k``, ``v``, ``index`` and, from
+    a ragged prefill, ``prompt_lens``, ``prompt_pad``); bf16 leaves come
+    back as f32."""
     n_periods, n_rest = cfg.layer_plan()
     period = len(cfg.pattern)
     host = [tree_map(_to_numpy, st) if isinstance(st, dict)

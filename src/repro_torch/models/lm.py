@@ -1,5 +1,4 @@
-"""Decoder-only language model — port of ``repro.models.lm`` for dense
-patterns of Aaren and softmax-attention blocks.
+"""Decoder-only language model — port of ``repro.models.lm``.
 
 Parameters are a plain tree: ``{"embed", "final_norm", "unembed"?,
 "layers": [block params, ...]}``.  ``layers`` is flat and in the JAX
@@ -7,19 +6,22 @@ package's order: period ``i``, pattern position ``pos`` is layer
 ``i·len(pattern) + pos``, then the remainder ("rest") layers; the JAX
 package's stacked ``lax.scan`` over periods becomes a Python loop.  Decode
 states are a list with one entry per layer — an Aaren ``ScanState`` carry,
-an RG-LRU ``{"h", "conv"}`` dict or a softmax KV-cache dict — with the
-batch on axis 0 of every tensor but the cache's scalar ``index``.
+an RG-LRU ``{"h", "conv"}`` or SSD ``{"s", "conv"}`` dict or a softmax
+KV-cache dict — with the batch on axis 0 of every tensor but the cache's
+scalar ``index``.
 
 Entry points, as in the JAX package:
 
-* :func:`lm_apply`         — tokens -> logits (+ per-layer decode states);
-* :func:`lm_loss`          — next-token cross-entropy, the training loss;
+* :func:`lm_apply`         — tokens -> logits (+ per-layer decode states,
+  + the MoE auxiliary metrics);
+* :func:`lm_loss`          — next-token cross-entropy (+ the MoE
+  load-balancing loss), the training loss;
 * :func:`lm_decode_step`   — one token through every layer's carry;
 * :func:`lm_prefill_chunk` — advance every carry by one fixed-shape chunk
   (the serving hot path);
 * :func:`lm_state_init` / :func:`lm_state_select` — the empty state, and a
-  per-slot masked select of position-free states (Aaren carries and
-  RG-LRU states, which the streaming engine serves) used to reset or keep
+  per-slot masked select of position-free states (Aaren carries, RG-LRU
+  and SSD states, which the streaming engine serves) used to reset or keep
   slots;
 * :func:`lm_state_take_slot` / :func:`lm_state_put_slot` — copy one slot's
   carry out, and write a one-slot carry into masked slots (the prefix
@@ -45,6 +47,10 @@ from repro_torch.models.layers import (
     unembed_specs,
 )
 from repro_torch.tree import tree_map
+
+# Weight of the MoE load-balance loss in ``lm_loss`` (the JAX package's
+# ``lm_loss`` default, ``aux_weight=0.01``).
+AUX_WEIGHT = 0.01
 
 
 def layer_sigs(cfg: ArchConfig) -> list[tuple[str, str]]:
@@ -82,10 +88,12 @@ def _logits(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 
 def lm_apply(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
              collect_state: bool = False, cache_len: int | None = None,
+             return_aux: bool = False,
              segment_ids: torch.Tensor | None = None,
              positions: torch.Tensor | None = None,
              lengths: torch.Tensor | None = None):
-    """tokens (B, N) -> (logits (B, N, vocab) f32, states or None).
+    """tokens (B, N) -> (logits (B, N, vocab) f32, states or None), and
+    with ``return_aux`` the MoE auxiliary metrics as a third value.
 
     Packed batches (DESIGN.md §Packing): ``segment_ids``/``positions``
     (B, N) keep the packed documents independent in every mixer: Aaren's
@@ -100,6 +108,11 @@ def lm_apply(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     cache when ``collect_state`` (default N); without ``collect_state`` no
     cache is built.
 
+    The auxiliary metrics (``load_balance_loss``, ``dropped_frac``) are
+    the blocks' summed and divided by the number of layers, dense layers
+    included, as in the JAX package; they are computed only when
+    ``return_aux`` asks for them.
+
     Remat (``torch.utils.checkpoint``, non-reentrant) covers the layers of
     the full periods, as the JAX package's ``jax.checkpoint`` covers the
     scanned periods.  ``cfg.remat == "block"`` checkpoints every layer: the
@@ -108,7 +121,8 @@ def lm_apply(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     periods (and ``scan_layers``), each group of ``_group_size(n_periods)``
     consecutive periods is one checkpoint, so the backward keeps only the
     groups' inputs and holds one group's activations at a time; otherwise
-    it checkpoints every layer, as ``"block"`` does.
+    it checkpoints every layer, as ``"block"`` does.  The auxiliary
+    metrics leave each checkpointed span as its outputs.
     """
     if cfg.remat not in ("none", "block", "group"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
@@ -123,41 +137,50 @@ def lm_apply(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         cache_len = None
     elif cache_len is None:
         cache_len = tokens.shape[1]
-    kw = dict(cache_len=cache_len, segment_ids=segment_ids,
-              positions=positions, lengths=lengths)
+    kw = dict(cache_len=cache_len, want_aux=return_aux,
+              segment_ids=segment_ids, positions=positions, lengths=lengths)
     layers = list(zip(params["layers"], layer_sigs(cfg)))
 
     def run(x, lo, hi):
-        sts = []
+        sts, aux = [], dict(blocks.ZERO_AUX)
         for p, sig in layers[lo:hi]:
-            x, st = blocks.block_sequence(p, x, sig, cfg, **kw)
+            x, st, a = blocks.block_sequence(p, x, sig, cfg, **kw)
             sts.append(st)
-        return x, sts
+            aux = {k: aux[k] + a[k] for k in aux}
+        return x, sts, aux
 
     states = []
+    aux = dict(blocks.ZERO_AUX)
     lo = 0
     while lo < len(layers):
         hi = lo + span if lo < n_remat else len(layers)
         if lo < n_remat and torch.is_grad_enabled():
-            x, sts = checkpoint(run, x, lo, hi, use_reentrant=False)
+            x, sts, a = checkpoint(run, x, lo, hi, use_reentrant=False)
         else:
-            x, sts = run(x, lo, hi)
+            x, sts, a = run(x, lo, hi)
         states += sts
+        aux = {k: aux[k] + a[k] for k in aux}
         lo = hi
-    return _logits(cfg, params, x), (states if collect_state else None)
+    out = (_logits(cfg, params, x), states if collect_state else None)
+    if return_aux:
+        out += ({k: v / max(len(layers), 1) for k, v in aux.items()},)
+    return out
 
 
 def lm_loss(cfg: ArchConfig, params: dict, batch: dict):
     """Next-token CE loss.  batch: {"tokens": (B, N), "loss_mask": (B, N)?,
     "segment_ids": (B, N)?, "positions": (B, N)?}.
 
-    Returns (loss, metrics): the masked mean of ``-log p(token_{t+1})`` in
-    f32, and ``{"loss", "ce"}`` plus the zero auxiliary metrics of a dense
-    model (``blocks.ZERO_AUX``), all detached.  Packed batches: position
-    ``t`` scores its target ``t+1`` only when both belong to the same real
-    document (``seg[t] == seg[t+1] != 0``), so no document is trained to
-    predict the next one's first token and padding is never scored.  VLM
-    ``prefix_embeds`` raise until their slice of the port lands.
+    Returns (loss, metrics): ``ce + AUX_WEIGHT · load_balance_loss`` with
+    ``ce`` the masked mean of ``-log p(token_{t+1})`` in f32, and
+    ``{"loss", "ce", "load_balance_loss", "dropped_frac"}``, all detached
+    0-d tensors (the MoE metrics are 0 for a dense model).  Packed
+    batches: position ``t`` scores its target ``t+1`` only when both
+    belong to the same real document (``seg[t] == seg[t+1] != 0``), so no
+    document is trained to predict the next one's first token and padding
+    is never scored (a MoE MLP still routes the padding, and capacity
+    counts it, as in the JAX package).  VLM ``prefix_embeds`` raise until
+    their slice of the port lands.
     """
     if batch.get("prefix_embeds") is not None:
         raise NotImplementedError(
@@ -165,8 +188,9 @@ def lm_loss(cfg: ArchConfig, params: dict, batch: dict):
             "port (ROADMAP queue A item 10)")
     tokens = batch["tokens"]
     seg = batch.get("segment_ids")
-    logits, _ = lm_apply(cfg, params, tokens, segment_ids=seg,
-                         positions=batch.get("positions"))
+    logits, _, aux = lm_apply(cfg, params, tokens, segment_ids=seg,
+                              positions=batch.get("positions"),
+                              return_aux=True)
     targets = tokens[:, 1:].long()
     logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     nll = -logp.gather(-1, targets[..., None])[..., 0]
@@ -177,9 +201,11 @@ def lm_loss(cfg: ArchConfig, params: dict, batch: dict):
         same_doc = (seg[:, 1:] == seg[:, :-1]) & (seg[:, 1:] != 0)
         mask = mask * same_doc.to(nll.dtype)
     ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    aux = {k: torch.full((), v, device=ce.device)
-           for k, v in blocks.ZERO_AUX.items()}
-    return ce, {"loss": ce.detach(), "ce": ce.detach(), **aux}
+    aux = {k: torch.as_tensor(v, dtype=torch.float32, device=ce.device)
+           for k, v in aux.items()}
+    loss = ce + AUX_WEIGHT * aux["load_balance_loss"]
+    metrics = {"loss": loss, "ce": ce, **aux}
+    return loss, {k: v.detach() for k, v in metrics.items()}
 
 
 def lm_decode_step(cfg: ArchConfig, params: dict, token_t: torch.Tensor,
@@ -214,8 +240,8 @@ def lm_prefill_chunk(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
 def lm_state_init(cfg: ArchConfig, batch: int, cache_len: int | None = None,
                   device="cuda") -> list:
     """The empty decode state of every layer: the ⊕-identity Aaren carry,
-    a zero RG-LRU state, or an empty bf16 KV cache of ``cache_len`` slots
-    (softmax layers need one)."""
+    a zero RG-LRU or SSD state, or an empty bf16 KV cache of ``cache_len``
+    slots (softmax layers need one)."""
     dev = resolve_device(device)
     return [blocks.block_state_init(sig, cfg, batch, cache_len, dev)
             for sig in layer_sigs(cfg)]
@@ -225,8 +251,8 @@ def lm_state_select(mask: torch.Tensor, a: list, b: list) -> list:
     """Per slot: ``a``'s state where ``mask`` (B,) is True, else ``b``'s.
 
     ``a`` and ``b`` are per-layer states of one structure whose leaves all
-    keep their batch on axis 0 (Aaren ``ScanState`` carries, RG-LRU dicts,
-    or both in one model), so the engine resets freed slots with
+    keep their batch on axis 0 (Aaren ``ScanState`` carries, RG-LRU or
+    SSD dicts, or several kinds in one model), so the engine resets freed slots with
     ``lm_state_select(freed, init, states)`` and keeps idle slots with
     ``lm_state_select(live, new, old)``.
     """

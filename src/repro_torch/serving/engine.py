@@ -20,8 +20,9 @@ samplers take one call for all rows; a streaming tick reads the device
 once, the sampled tokens and each row's logit finiteness together.
 
 A request's whole context is its per-layer carry — Aaren's ``(m, u, w)``,
-RG-LRU's ``{"h", "conv"}`` — a few hundred KB to about a MB at full width:
-a cached prefix or a migrated request moves as one host copy of it.
+RG-LRU's ``{"h", "conv"}``, SSD's ``{"s", "conv"}`` — a few hundred KB to
+about a hundred MB at full width (mamba2-1.3b: 101,916,672 B): a cached
+prefix or a migrated request moves as one host copy of it.
 
 The streaming engine reports through ``repro_torch.obs`` under the JAX
 package's names: the ``serve_*`` counters, gauges and TTFT/ITL histograms
@@ -77,9 +78,9 @@ def decode_state_bytes(states) -> int:
 
 
 def carry_to_host(carry: list) -> list:
-    """A carry (one state a layer: an Aaren ``ScanState`` or an RG-LRU
-    dict) with numpy f32 leaves, in one device-to-host copy.  A bf16 leaf
-    (the RG-LRU conv tail) is widened to f32, exactly."""
+    """A carry (one state a layer: an Aaren ``ScanState``, an RG-LRU or an
+    SSD dict) with numpy f32 leaves, in one device-to-host copy.  A bf16
+    leaf (a conv tail) is widened to f32, exactly."""
     leaves = tree_leaves(carry)
     flat = torch.cat([x.reshape(-1).float() for x in leaves]).cpu().numpy()
     pieces = iter(np.split(flat, np.cumsum([x.numel() for x in leaves])))
@@ -285,11 +286,14 @@ def _validate_request(prompt, max_new_tokens: int,
 class StreamingEngine:
     """Chunked-prefill continuous batching over ``n_slots`` decode slots.
 
-    Position-free decode states only (Aaren and RG-LRU mixers), so
+    Position-free decode states only (Aaren, RG-LRU and SSD mixers), so
     admitting a request needs no cache reshaping.  An all-Aaren model takes
     any ``chunk`` (masked positions are ⊕-identity; default 16); an RG-LRU
-    carry advances one token at a time, so a model with RG-LRU layers runs
-    at ``chunk == 1`` (the default there), as in the JAX package.
+    or SSD carry advances one token at a time, so a model with such layers
+    runs at ``chunk == 1`` (the default there), as in the JAX package.  A
+    MoE MLP routes each chunk's padding too and sizes its capacity per
+    chunk, so a model with one streams only on a fixed chunk grid (a
+    migrated or restored request keeps it).
 
     ``prefix_cache`` (optional :class:`~repro_torch.serving.prefix_cache
     .PrefixCache`) caches prompt-prefix carries across requests: an admitted

@@ -2,7 +2,8 @@
 
 A whole prompt prefix compresses to a per-layer carry of O(layers · heads)
 floats (the paper's O(1)-state claim) — Aaren's ``(m, u, w)``, and in a
-hybrid model RG-LRU's ``{"h", "conv"}`` beside it: where a paged-KV server
+hybrid model RG-LRU's ``{"h", "conv"}`` beside it, or SSD's ``{"s",
+"conv"}`` (101,916,672 B at mamba2-1.3b's full width): where a paged-KV server
 needs a block allocator and O(tokens) of device memory per cached prefix,
 such a prefix is a list of small host arrays — 401,408 B at the full width
 of ``phi3-mini-3.8b`` (32 layers x 32 heads x (96 + 2) f32), whatever the
@@ -29,7 +30,8 @@ with the JAX package's ``extra["prefix_cache"]`` schema, and ``load``
 walks past corrupt steps.
 
 The cache holds **host** numpy carries (one state a layer — a
-``ScanState`` or an RG-LRU dict — with a size-1 batch axis on every leaf); the engine copies one to the device when it
+``ScanState``, an RG-LRU or an SSD dict — with a size-1 batch axis on
+every leaf); the engine copies one to the device when it
 writes it into a slot.  One cache may serve every replica of a
 ``ReplicatedRouter``, whose engines step on worker threads, so every
 method takes the cache's lock.

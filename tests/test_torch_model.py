@@ -37,7 +37,8 @@ CONFIGS = {
 
 
 NEW_CONFIGS = ("recurrentgemma-9b", "gemma3-27b", "llama3-405b",
-               "minitron-8b")
+               "minitron-8b", "mamba2-1.3b", "qwen3-moe-30b-a3b",
+               "dbrx-132b")
 
 
 @pytest.mark.parametrize("make", [
@@ -236,8 +237,16 @@ def test_entry_points_refuse_a_missing_card():
 
 
 def test_unsupported_blocks_raise():
-    """A mixer not yet ported raises, naming the ROADMAP item that brings
-    it (RG-LRU is ported: tests/test_torch_hybrid.py)."""
-    cfg = smoke_config("phi3-mini-3.8b", pattern=("ssd",))
-    with pytest.raises(NotImplementedError, match="A10b"):
-        build(cfg).init(0, device="cpu")
+    """An unknown mixer raises; an SSD block (ROADMAP A10b, ported:
+    tests/test_torch_ssd.py) builds in a dense pattern and runs."""
+    cfg = smoke_config("phi3-mini-3.8b", pattern=("ssd",), ssm_state=16,
+                       ssm_heads=4)
+    api = build(cfg)
+    params = api.init(0, device="cpu")
+    assert params["layers"][0]["mixer"]["w_in"].shape == (
+        cfg.d_model, 2 * cfg.d_inner + 2 * 16 + 4)
+    logits = api.forward(params, {"tokens": torch.zeros((1, 5),
+                                                        dtype=torch.int64)})
+    assert torch.isfinite(logits).all()
+    with pytest.raises(ValueError, match="unknown mixer"):
+        build(cfg.replace(pattern=("lstm",))).init(0, device="cpu")
